@@ -6,21 +6,26 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``flock_tpu_torch/csrc`` (``nvcc``,
-into ``flock_tpu_torch/build/``) and runs five phases; any failure raises
+into ``flock_tpu_torch/build/``) and runs these phases; any failure raises
 and the script exits non-zero:
 
 1. environment: torch / CUDA / nvcc / triton versions, the card, the kernel
    build time, and the device-to-device copy bandwidth (1 GiB copy);
 2. each kernel against its plain PyTorch version on the same CUDA tensors,
-   at the shapes of one q4 bench window, exact integer equality, with CUDA
-   event timings of the kernel, the plain version and the nearest single
-   PyTorch call;
-3. NEXMark q4 at the bench size (4 s x 4 M events/s, element-wise windows)
-   through ``StreamDriver`` on the card: every kernel's launch count over
-   that run, no fallback, rows equal to the plain CPU path and to an
-   independent numpy q4; compute-only and feed-inclusive rows/s;
-4. the duplicate-auction configuration (10 s x 350 events/s, 3 generators,
-   one 10 s window) through the fallback on the card, against numpy q4;
+   at the shapes of one bench window of the queries that run it, exact
+   integer equality, with CUDA event timings of the kernel, the plain
+   version and the nearest single PyTorch call, and each case's byte bound;
+3. NEXMark q4, q9 and q13 at the bench size (4 s x 4 M events/s, the same
+   generated epochs, element-wise windows) and q3 at its bench size (4 s x
+   16 M events/s), each through ``StreamDriver`` on the card: every kernel
+   of the query's path launched (counts zeroed just before the run, read
+   just after), no fallback, rows equal to the plain CPU path and to an
+   independent numpy version; compute-only and feed-inclusive rows/s and
+   the device's idle share;
+4. the duplicate configuration (10 s x 350 events/s, 3 generators, one 10 s
+   window) for q4, q9 and q3 on the card against numpy — q4 and q9 rerun
+   the window with the duplicate-faithful fallback — and q3 over that
+   window with every person row repeated, which reruns too;
 5. the card's name and power limit, then one JSON result line.
 
 It imports nothing of ``jax`` or ``flock_tpu``.
@@ -40,12 +45,27 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth, and the float32 rate outside
-# the tensor cores (the data sheet gives no int32 rate; the kernels' work is
-# int32 compares, adds and atomics)
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth.  Every kernel here moves a few
+# bytes per row and does a few integer operations on them: bytes bound them.
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
 SEED = 1234
+BENCH_SECONDS, BENCH_EPS = 4, 4_000_000   # bench.py's defaults
+Q3_EPS = 4 * BENCH_EPS                    # bench.py raises q3 to 4x (:322)
+
+# kernel → (source, the TPU kernel it replaces)
+KERNELS = {
+    "join_agg": ("flock_tpu_torch/csrc/join_agg.cu",
+                 "flock_tpu/pallas/join_agg.py:297"),
+    "dense_agg": ("flock_tpu_torch/csrc/dense_agg.cu",
+                  "flock_tpu/pallas/factored.py:460"),
+    "gather": ("flock_tpu_torch/csrc/gather.cu",
+               "flock_tpu/pallas/factored.py:555"),
+}
+# the kernels each query's main path must launch
+QUERY_KERNELS = {4: ("join_agg", "dense_agg"),
+                 9: ("join_agg", "dense_agg", "gather"),
+                 13: ("dense_agg", "gather"),
+                 3: ("dense_agg", "gather")}
 
 
 def sh(*cmd: str) -> str:
@@ -56,6 +76,16 @@ def sh(*cmd: str) -> str:
 def card() -> str:
     return sh("nvidia-smi", "--query-gpu=name,power.limit",
               "--format=csv,noheader").splitlines()[0]
+
+
+def counters() -> dict:
+    """Kernel name → its wrapper, which counts its launches."""
+    from flock_tpu_torch.ops.dense_agg import dense_agg
+    from flock_tpu_torch.ops.gather import gather
+    from flock_tpu_torch.ops.join_agg import join_aggregate
+
+    return {"join_agg": join_aggregate, "dense_agg": dense_agg,
+            "gather": gather}
 
 
 def cuda_ms(fn, reps: int = 15, warmup: int = 2) -> float:
@@ -120,7 +150,7 @@ def phase_env(card_line: str) -> dict:
         triton_v = "absent"
     nvcc_v = sh(_build.nvcc(), "--version").splitlines()[-1]
     t0 = time.perf_counter()
-    logs = _build.build_all(["dense_agg", "join_agg"])
+    logs = _build.build_all(list(KERNELS))
     build_s = time.perf_counter() - t0
     env = {"torch": torch.__version__, "cuda": torch.version.cuda,
            "nvcc": nvcc_v, "triton": triton_v, "card": card_line,
@@ -183,10 +213,32 @@ def _check_k1(slots, present, m, probe, pvalid, pred, aggs):
     return err, int(v1.sum())
 
 
+def _check_k3(slots, present, m, keys, valid, what):
+    """K3 against its plain version; the case must hold hits, misses and
+    present keys whose slot is absent."""
+    from flock_tpu_torch.ops.gather import gather, gather_plain
+
+    o1, h1 = gather(slots, present, m, keys, valid)
+    o2, h2 = gather_plain(slots, present, m, keys, valid)
+    torch.cuda.synchronize()
+    err = _equal(o1, o2, list(o2))
+    if not torch.equal(h1, h2):
+        raise AssertionError(f"gather {what}: hit differs")
+    rel = keys.to(torch.int64) - m.to(torch.int64)
+    in_span = valid & (rel >= 0) & (rel < present.shape[0])
+    absent = in_span & ~present[torch.where(in_span, rel, 0)]
+    counts = [int(h1.sum()), int((valid & ~in_span).sum()), int(absent.sum())]
+    if min(counts) == 0:
+        raise AssertionError(f"gather {what}: hits/misses/absent {counts}")
+    return err, o1
+
+
 def phase_kernels(env: dict) -> list[dict]:
-    """K1 and K2 against their plain versions at one bench window's shapes
-    (4 M events/s: ~240 k auctions, ~3.68 M bids), inputs from a seed."""
+    """Each kernel against its plain version at one bench window's shapes
+    (4 M events/s: ~240 k auctions, ~3.68 M bids; q3 at 16 M events/s:
+    ~320 k persons, ~960 k auctions), inputs from a seed."""
     from flock_tpu_torch.ops.dense_agg import dense_agg, dense_agg_plain
+    from flock_tpu_torch.ops.gather import gather, gather_plain
     from flock_tpu_torch.ops.join_agg import join_agg_plain, join_aggregate
     from flock_tpu_torch.plan import Conj
 
@@ -267,23 +319,46 @@ def phase_kernels(env: dict) -> list[dict]:
     if not _check_k2(over, fv, cat_cols, cat_aggs, 128)[1]:
         raise AssertionError("dense_agg: the overflow case did not overflow")
 
-    # operations this run's data needs (int32 ALU work): per valid row the
-    # key's offset and two range compares; K1 then one compare per predicate
-    # term for each row that finds a present slot, and one accumulate per
-    # aggregate plus the count for each pair that passes; K2 one accumulate
-    # per aggregate plus the count for each valid row
-    rel_p = probe["auction"].to(torch.int64) - m.to(torch.int64)
-    in_span = pvalid & (rel_p >= 0) & (rel_p < span)
-    relc = torch.where(in_span, rel_p, 0)
-    hit = in_span & present[relc]
-    found = int(hit.sum())
-    pairs = int((hit & pred({**probe, **{k: v[relc] for k, v in slots.items()}})
-                 ).sum())
-    k1_ops = 3 * int(pvalid.sum()) + len(pred.terms) * found \
-        + (len(k1_aggs) + 1) * pairs
+    # K2 with (count, max): pallas_count_max_agg's microbench shape
+    # (bench/kernels_bench.py:164-176, 280-283: 4 Mi rows on an advancing
+    # frontier, 256 Ki slots, m = 0)
+    nb6, span6 = 4 * 1024 * 1024, 256 * 1024
+    fr6 = np.arange(nb6, dtype=np.int64) * (span6 - 4096) // nb6
+    keys6 = t((fr6 + rng.integers(-120, 10, nb6)).clip(0).astype(np.int32))
+    valid6 = t(np.ones(nb6, bool))
+    cols6 = {"v": t(rng.integers(100, 10**8, nb6).astype(np.int32))}
+    aggs6 = [(None, "count", "cnt"), ("v", "max", "mx")]
+    err_b6, _ = _check_k2(keys6, valid6, cols6, aggs6, span6)
 
-    def k2_ops(valid, aggs):
-        return (3 + len(aggs) + 1) * int(valid.sum())
+    # K3: q9's second join — the fused pass's slots (final per auction)
+    # gathered to every bid — then q13's side-input join (10,000 keys from
+    # 1000, 18,304 slots, most bids miss) and q3's person join (~328 k
+    # person slots, half absent after the state filter, ~960 k auctions)
+    k3 = {}
+    q9_slots = {"final": fused["final"]}
+    err_q9, g_q9 = _check_k3(q9_slots, fvalid, m, probe["auction"], pvalid,
+                                "q9")
+    k3["gather/q9"] = (q9_slots, fvalid, m, probe["auction"], pvalid, err_q9,
+                       g_q9)
+    si_span = 10_112 + 8_192
+    si_present = t(np.arange(si_span) < 10_000)
+    q13_slots = {"value": t((m0 + np.arange(si_span)).astype(np.int32))}
+    m13 = torch.tensor(m0, dtype=torch.int32, device=dev)
+    err_q13, g_q13 = _check_k3(q13_slots, si_present, m13, probe["auction"],
+                                  pvalid, "q13")
+    k3["gather/q13"] = (q13_slots, si_present, m13, probe["auction"], pvalid,
+                        err_q13, g_q13)
+    np_, na3 = 320_000, 960_000
+    p_span = np_ + 8_192
+    p_present = t(rng.random(p_span) < 0.5)
+    q3_slots = {"name": t(rng.integers(0, 100, p_span).astype(np.int32)),
+                "city": t(rng.integers(0, 10, p_span).astype(np.int32)),
+                "state": t(rng.integers(0, 6, p_span).astype(np.int32))}
+    m3 = torch.tensor(m0, dtype=torch.int32, device=dev)
+    sellers = t((m0 + rng.integers(-2_000, p_span + 2_000, na3)).astype(np.int32))
+    svalid = t(rng.random(na3) < 0.2)   # category = 10 keeps ~1 in 5
+    err_q3, g_q3 = _check_k3(q3_slots, p_present, m3, sellers, svalid, "q3")
+    k3["gather/q3"] = (q3_slots, p_present, m3, sellers, svalid, err_q3, g_q3)
 
     # timings at the main path's shapes
     rel_idx = (probe["auction"].to(torch.int64) - m0).clamp(0, span)
@@ -291,6 +366,8 @@ def phase_kernels(env: dict) -> list[dict]:
     cat_idx = (fused["category"].to(torch.int64) - 10).clamp(0, 127)
     cat_buf = torch.zeros(128, dtype=torch.int64, device=dev)
     final64 = fused["final"].to(torch.int64)
+    buf6 = torch.full((span6,), -2**31, dtype=torch.int32, device=dev)
+    keys6_64 = keys6.to(torch.int64)
     cases = {
         "join_agg": dict(
             kernel=lambda: join_aggregate(slots, present, m, probe, pvalid,
@@ -303,9 +380,7 @@ def phase_kernels(env: dict) -> list[dict]:
             device_kernel="join_agg_kernel",
             bytes=nbytes(*probe.values(), pvalid, present, *slots.values())
             + nbytes(fused["final"], fused["category"], fvalid) + 4 * span,
-            ops=k1_ops, err=err_k1,
-            replaces="flock_tpu/pallas/join_agg.py:297",
-            source="flock_tpu_torch/csrc/join_agg.cu"),
+            err=err_k1),
         "dense_agg/slotting": dict(
             kernel=lambda: dense_agg(keys, bvalid, bcols, slot_aggs, span),
             plain=lambda: dense_agg_plain(keys, bvalid, bcols, slot_aggs, span),
@@ -314,9 +389,7 @@ def phase_kernels(env: dict) -> list[dict]:
             library_call="scatter_reduce_(amax) of one slot column",
             device_kernel="dense_agg_global",
             bytes=nbytes(keys, bvalid, *bcols.values()) + 16 * span,
-            ops=k2_ops(bvalid, slot_aggs), err=err_slot,
-            replaces="flock_tpu/pallas/factored.py:460",
-            source="flock_tpu_torch/csrc/dense_agg.cu"),
+            err=err_slot),
         "dense_agg/per_category": dict(
             kernel=lambda: dense_agg(fused["category"], fvalid, cat_cols,
                                      cat_aggs, 128),
@@ -326,31 +399,59 @@ def phase_kernels(env: dict) -> list[dict]:
             library_call="index_add_ of the sum column",
             device_kernel="dense_agg_shared",
             bytes=nbytes(fused["category"], fvalid, fused["final"]) + 12 * 128,
-            ops=k2_ops(fvalid, cat_aggs), err=err_cat,
-            replaces="flock_tpu/pallas/factored.py:460",
-            source="flock_tpu_torch/csrc/dense_agg.cu"),
+            err=err_cat),
+        # B6's shape: no path of the port runs it, so it stays out of the
+        # kernel's summed times
+        "dense_agg/count_max_b6": dict(
+            kernel=lambda: dense_agg(keys6, valid6, cols6, aggs6, span6),
+            plain=lambda: dense_agg_plain(keys6, valid6, cols6, aggs6, span6),
+            library=lambda: buf6.scatter_reduce_(0, keys6_64, cols6["v"],
+                                                 "amax"),
+            library_call="scatter_reduce_(amax) of the max column",
+            device_kernel="dense_agg_global",
+            bytes=nbytes(keys6, valid6, *cols6.values()) + 8 * span6,
+            err=err_b6, main_path=False,
+            replaces="flock_tpu/pallas/agg.py:97"),
     }
+    for name, (sc, pr, mm, kk, vv, err, g) in k3.items():
+        col0 = next(iter(sc.values()))
+        idx = (kk.to(torch.int64) - mm.to(torch.int64)).clamp(
+            0, pr.shape[0] - 1)
+        cases[name] = dict(
+            kernel=lambda sc=sc, pr=pr, mm=mm, kk=kk, vv=vv: gather(
+                sc, pr, mm, kk, vv),
+            plain=lambda sc=sc, pr=pr, mm=mm, kk=kk, vv=vv: gather_plain(
+                sc, pr, mm, kk, vv),
+            library=lambda col0=col0, idx=idx: col0[idx],
+            library_call="slots[idx] of one column",
+            device_kernel="gather_kernel",
+            # keys, valid, present and the slot columns in; the gathered
+            # columns and hit out
+            bytes=nbytes(kk, vv, pr, *sc.values()) + nbytes(*g.values())
+            + kk.numel(),
+            err=err)
     out = []
     for name, c in cases.items():
-        bytes_ms = c["bytes"] / PEAK_BYTES_S * 1e3
-        ops_ms = c["ops"] / PEAK_OPS_S * 1e3
         # ms / plain_ms / library_ms: CUDA-event medians of the wrapper, of
         # the plain version and of the library call, each the whole call;
         # kernel_device_ms: the profiler's mean device time of the CUDA
-        # kernel alone; bound_copy_ms: the bytes over this run's copy rate
-        rec = {"case": name,
+        # kernel alone; bound_ms: the bytes over the data sheet's rate,
+        # bound_copy_ms: over this run's measured copy rate
+        kernel = name.split("/")[0]
+        rec = {"case": name, "kernel": kernel,
                "ms": cuda_ms(c["kernel"]),
                "plain_ms": cuda_ms(c["plain"]),
                "library_ms": cuda_ms(c["library"]),
                "kernel_device_ms": kernel_device_ms(c["kernel"],
                                                     c["device_kernel"]),
                "library_call": c["library_call"],
-               "bytes": c["bytes"], "ops": c["ops"],
-               "bound_ms": max(bytes_ms, ops_ms),
-               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "bytes": c["bytes"],
+               "bound_ms": c["bytes"] / PEAK_BYTES_S * 1e3,
                "bound_copy_ms": c["bytes"] / env["copy_bytes_per_s"] * 1e3,
                "max_abs_err": c["err"], "exact": c["err"] == 0,
-               "replaces": c["replaces"], "source": c["source"]}
+               "main_path": c.get("main_path", True),
+               "replaces": c.get("replaces", KERNELS[kernel][1]),
+               "source": KERNELS[kernel][0]}
         print("kernel case: " + json.dumps(rec), flush=True)
         out.append(rec)
     return out
@@ -359,87 +460,184 @@ def phase_kernels(env: dict) -> list[dict]:
 # -- phases 3 and 4 -----------------------------------------------------------
 
 
-def numpy_q4(auction: dict, bid: dict) -> dict:
+def _pairs(build_keys: np.ndarray, probe_keys: np.ndarray):
+    """(probe row, build row) index pairs of the equi-join, every duplicate
+    build row included."""
+    bk, pk = build_keys.astype(np.int64), probe_keys.astype(np.int64)
+    order = np.argsort(bk, kind="stable")
+    lo = np.searchsorted(bk[order], pk, "left")
+    cnt = np.searchsorted(bk[order], pk, "right") - lo
+    pi = np.repeat(np.arange(len(pk)), cnt)
+    start = np.repeat(np.cumsum(cnt) - cnt, cnt)
+    return pi, order[np.repeat(lo, cnt) + np.arange(len(pi)) - start]
+
+
+def _winning_pairs(auction: dict, bid: dict):
+    """(bid row, auction row) pairs with the bid inside the auction's
+    [a_date_time, expires] interval."""
+    bi, ai = _pairs(auction["a_id"], bid["auction"])
+    t = bid["b_date_time"][bi]
+    ok = (auction["a_date_time"][ai] <= t) & (t <= auction["expires"][ai])
+    return bi[ok], ai[ok]
+
+
+def _last_of_groups(*keys) -> tuple[np.ndarray, np.ndarray]:
+    """(order, last): the lexsort order of ``keys`` (the last key most
+    significant) and a mask of the last row of each group of the
+    significant keys after the first."""
+    order = np.lexsort(keys)
+    groups = [k[order] for k in keys[1:]]
+    last = np.ones(len(order), bool)
+    if len(order):
+        last[:-1] = np.logical_or.reduce([g[1:] != g[:-1] for g in groups])
+    return order, last
+
+
+def numpy_q4(t: dict) -> dict:
     """Independent q4: join every bid to every auction row with its id
     (duplicates included), keep the bids inside [a_date_time, expires],
     max price per (a_id, category), then sum and count per category."""
-    a_id = auction["a_id"].astype(np.int64)
-    order = np.argsort(a_id, kind="stable")
-    b_auc = bid["auction"].astype(np.int64)
-    lo = np.searchsorted(a_id[order], b_auc, "left")
-    cnt = np.searchsorted(a_id[order], b_auc, "right") - lo
-    bi = np.repeat(np.arange(len(b_auc)), cnt)
-    start = np.repeat(np.cumsum(cnt) - cnt, cnt)
-    ai = order[np.repeat(lo, cnt) + np.arange(len(bi)) - start]
-    t = bid["b_date_time"][bi]
-    ok = (auction["a_date_time"][ai] <= t) & (t <= auction["expires"][ai])
-    bi, ai = bi[ok], ai[ok]
-    gid, gcat = a_id[ai], auction["category"][ai].astype(np.int64)
+    auction, bid = t["auction"], t["bid"]
+    bi, ai = _winning_pairs(auction, bid)
+    gid = auction["a_id"][ai].astype(np.int64)
+    gcat = auction["category"][ai].astype(np.int64)
     price = bid["price"][bi].astype(np.int64)
-    o = np.lexsort((price, gcat, gid))
-    gid, gcat, price = gid[o], gcat[o], price[o]
-    last = np.ones(len(gid), bool)
-    last[:-1] = (gid[1:] != gid[:-1]) | (gcat[1:] != gcat[:-1])
-    cats, inv = np.unique(gcat[last], return_inverse=True)
+    o, last = _last_of_groups(price, gcat, gid)
+    cats, inv = np.unique(gcat[o][last], return_inverse=True)
     sums = np.zeros(len(cats), np.int64)
-    np.add.at(sums, inv, price[last])
+    np.add.at(sums, inv, price[o][last])
     counts = np.bincount(inv, minlength=len(cats)).astype(np.int64)
     return {"category": cats, "sum_final": sums, "cnt": counts,
             "avg_final": sums.astype(np.float64) / counts}
 
 
+def numpy_q9(t: dict) -> dict:
+    """Independent q9: the max price over the bids inside any interval of
+    an auction row with that id, then every bid at its auction's max."""
+    auction, bid = t["auction"], t["bid"]
+    bi, _ = _winning_pairs(auction, bid)
+    auc = bid["auction"][bi].astype(np.int64)
+    price = bid["price"][bi].astype(np.int64)
+    o, last = _last_of_groups(price, auc)
+    ids, best = auc[o][last], price[o][last]
+    pos = np.searchsorted(ids, bid["auction"].astype(np.int64))
+    posc = np.minimum(pos, max(len(ids) - 1, 0))
+    keep = (pos < len(ids)) & (ids[posc] == bid["auction"]) \
+        & (best[posc] == bid["price"]) if len(ids) else np.zeros(
+            len(pos), bool)
+    return {k: bid[k][keep] for k in ("auction", "bidder", "price",
+                                      "b_date_time")}
+
+
+def numpy_q13(t: dict, side_input: dict) -> dict:
+    """Independent q13: every bid whose auction id is a side-input key,
+    with that key's value (the keys are unique)."""
+    bid = t["bid"]
+    order = np.argsort(side_input["key"], kind="stable")
+    sk, sv = side_input["key"][order], side_input["value"][order]
+    pos = np.searchsorted(sk, bid["auction"])
+    posc = np.minimum(pos, len(sk) - 1)
+    keep = (pos < len(sk)) & (sk[posc] == bid["auction"])
+    out = {k: bid[k][keep] for k in ("auction", "bidder", "price",
+                                     "b_date_time")}
+    out["value"] = sv[posc][keep]
+    return out
+
+
+def numpy_q3(t: dict) -> dict:
+    """Independent q3: persons in or/id/ca joined, duplicates included, to
+    the auctions of category 10 they sell."""
+    from flock_tpu_torch.datagen.nexmark import US_STATES
+
+    person, auction = t["person"], t["auction"]
+    pm = np.isin(person["state"], [US_STATES.index(s) for s in ("or", "id",
+                                                                 "ca")])
+    am = auction["category"] == 10
+    p = {k: v[pm] for k, v in person.items()}
+    a = {k: v[am] for k, v in auction.items()}
+    ai, pj = _pairs(p["p_id"], a["seller"])
+    return {"name": p["name"][pj], "city": p["city"][pj],
+            "state": p["state"][pj], "a_id": a["a_id"][ai]}
+
+
+def numpy_query(q: int, tables: dict) -> dict:
+    from flock_tpu_torch.runtime.tables import default_side_input
+
+    if q == 13:
+        return numpy_q13(tables, default_side_input())
+    return {3: numpy_q3, 4: numpy_q4, 9: numpy_q9}[q](tables)
+
+
 def _same_rows(got: dict, want: dict, names, what: str) -> None:
+    """The same columns, row for row."""
     for k in names:
         g, w = np.asarray(got[k]), np.asarray(want[k])
         if g.shape != w.shape or not np.array_equal(g, w):
             raise AssertionError(f"{what}: column {k} differs:\n{g}\n{w}")
 
 
-def phase_q4(card_line: str) -> dict:
-    from flock_tpu_torch.ops.dense_agg import dense_agg
-    from flock_tpu_torch.ops.join_agg import join_aggregate
-    from flock_tpu_torch.queries.nexmark import get_query
-    from flock_tpu_torch.runtime.executor import LocalExecutor, materialize_columns
-    from flock_tpu_torch.runtime.stream import StreamDriver, generate_epochs
+def _same_row_set(got: dict, want: dict, names, what: str) -> None:
+    """The same rows in any order (SQL sets no order)."""
+    def rows(cols):
+        arrays = [np.asarray(cols[n]) for n in names]
+        order = np.lexsort(arrays[::-1])
+        return {n: a[order] for n, a in zip(names, arrays)}
 
-    seconds, eps = 4, 4_000_000
-    t0 = time.perf_counter()
-    epochs = generate_epochs(seconds, eps, 1)
-    gen_s = time.perf_counter() - t0
-    spec = get_query(4)
+    _same_rows(rows(got), rows(want), names, what)
+
+
+def _host(ex, batch) -> dict:
+    """Every device column on the host, with the sink's columns over them
+    (absolute timestamps, f64 averages)."""
+    from flock_tpu_torch.runtime.executor import materialize_columns
+
+    host = batch.to_numpy()
+    return {**host, **materialize_columns(ex.spec, host)}
+
+
+def phase_query(q: int, epochs: list, seconds: int, eps: int, gen_s: float,
+                card_line: str) -> dict:
+    """One query at bench size through StreamDriver on the card; returns
+    the launches of every kernel over that run."""
+    from flock_tpu_torch.queries.nexmark import get_query
+    from flock_tpu_torch.runtime.executor import LocalExecutor
+    from flock_tpu_torch.runtime.stream import StreamDriver
+    from flock_tpu_torch.runtime.tables import window_relations
+
+    spec = get_query(q)
     driver = StreamDriver(spec, seconds, device="cuda")
 
     # the main path, with every launch counter at zero before it
-    join_aggregate.launches = dense_agg.launches = 0
+    wrappers = counters()
+    for w in wrappers.values():
+        w.launches = 0
     t0 = time.perf_counter()
     results = driver.run(epochs)
     torch.cuda.synchronize()
     first_run_s = time.perf_counter() - t0
-    launches = {"join_agg": join_aggregate.launches,
-                "dense_agg": dense_agg.launches}
-    if min(launches.values()) == 0:
-        raise AssertionError(f"q4 did not run through every kernel: {launches}")
+    launches = {k: w.launches for k, w in wrappers.items()}
+    missing = [k for k in QUERY_KERNELS[q] if not launches[k]]
+    if missing:
+        raise AssertionError(f"q{q} did not run through {missing}: {launches}")
     if driver.executor.fallback_runs:
-        raise AssertionError("q4 at the bench size took the fallback")
+        raise AssertionError(f"q{q} at the bench size took the fallback")
 
     windows = driver.windows(epochs)
-    caps = driver._fixed_caps(windows, spec.relations)
+    caps = driver._fixed_caps(windows, window_relations(spec.relations))
     gpu = LocalExecutor(spec, device="cuda")
     cpu = LocalExecutor(spec, device="cpu")
+    out_rows = 0
     for (tag, tables), res in zip(windows, results):
-        got = gpu.execute_window(tables, caps).to_numpy()
-        got["avg_final"] = materialize_columns(spec, got)["avg_final"]
-        plain = cpu.execute_window(tables, caps).to_numpy()
-        plain["avg_final"] = materialize_columns(spec, plain)["avg_final"]
-        want = numpy_q4(tables["auction"], tables["bid"])
-        names = ["category", "sum_final", "cnt", "avg_final"]
-        _same_rows(got, plain, names, f"q4 {tag}: card vs CPU plain path")
-        _same_rows(got, want, names, f"q4 {tag}: card vs numpy q4")
-        _same_rows(res.columns, want, ["category", "avg_final"],
-                   f"q4 {tag}: StreamDriver vs numpy q4")
+        got = _host(gpu, gpu.execute_window(tables, caps))
+        plain = _host(cpu, cpu.execute_window(tables, caps))
+        want = numpy_query(q, tables)
+        _same_rows(got, plain, list(plain), f"q{q} {tag}: card vs CPU plain path")
+        _same_row_set(got, want, list(want), f"q{q} {tag}: card vs numpy")
+        _same_row_set(res.columns, want, spec.schema.names,
+                      f"q{q} {tag}: StreamDriver vs numpy")
+        out_rows += len(res.columns[spec.schema.names[0]])
 
-    rows_in = sum(len(t[r]["a_id" if r == "auction" else "auction"])
-                  for _, t in windows for r in ("auction", "bid"))
+    rows_in = sum(len(next(iter(t[r].values()))) for _, t in windows for r in t)
     ex = driver.executor
     staged = [ex.prepare_window(t, caps) for _, t in windows]
     torch.cuda.synchronize()
@@ -456,7 +654,7 @@ def phase_q4(card_line: str) -> dict:
                               for b in staged])
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)
-    print("q4 profile: " + json.dumps({
+    print(f"q{q} profile: " + json.dumps({
         "windows": len(staged), "compute_ms": best * 1e3,
         "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / (best * 1e3),
         "device_ops": sum(e.count for e in events),
@@ -474,60 +672,115 @@ def phase_q4(card_line: str) -> dict:
         ex.execute_batches(prev, check_overflow=False)
         torch.cuda.synchronize()
         best_incl = min(best_incl, time.perf_counter() - t0)
-    rec = {"query": 4, "seconds": seconds, "eps": eps, "windows": len(windows),
-           "rows_in": rows_in, "gen_s": gen_s, "first_run_s": first_run_s,
-           "compute_s": best, "rows_per_s": rows_in / best,
-           "feed_incl_s": best_incl, "rows_per_s_feed_inclusive":
-           rows_in / best_incl, "fallback_runs": ex.fallback_runs,
+    rec = {"query": q, "seconds": seconds, "eps": eps, "windows": len(windows),
+           "rows_in": rows_in, "rows_out": out_rows, "gen_s": gen_s,
+           "first_run_s": first_run_s, "compute_s": best,
+           "rows_per_s": rows_in / best, "feed_incl_s": best_incl,
+           "rows_per_s_feed_inclusive": rows_in / best_incl,
+           "launches": launches, "fallback_runs": ex.fallback_runs,
            "card": card_line}
-    print("q4: " + json.dumps(rec), flush=True)
+    print(f"q{q}: " + json.dumps(rec), flush=True)
     return launches
 
 
+def _duplicate_persons(window: dict) -> dict:
+    """The window with every person row repeated under another name, city
+    and a state inside q3's filter: each of their sellers joins twice."""
+    p = window["person"]
+    twin = dict(p, name=(p["name"] + 1) % 100, city=(p["city"] + 1) % 10,
+                state=np.full_like(p["state"], 3))
+    return dict(window, person={k: np.concatenate([p[k], twin[k]])
+                                for k in p})
+
+
 def phase_duplicates() -> None:
+    """tests/test_sqlite_oracle.py:280's configuration: misaligned
+    generators repeat auction ids (never person ids), so q4's and q9's
+    fused passes escape and the window reruns; q3 runs clean there, and
+    reruns once over the window with every person row repeated."""
     from flock_tpu_torch.queries.nexmark import get_query
+    from flock_tpu_torch.runtime.executor import LocalExecutor
     from flock_tpu_torch.runtime.stream import StreamDriver, generate_epochs
     from flock_tpu_torch.runtime.tables import concat_relations
 
     seconds = 10
     epochs = generate_epochs(seconds, 350, 3)
-    driver = StreamDriver(get_query(4), seconds, device="cuda")
-    driver._window_epoch_ranges = lambda: [
-        (("win", 0, seconds), list(range(seconds)))]
-    results = driver.run(epochs)
-    if driver.executor.fallback_runs == 0:
-        raise AssertionError("the duplicate window did not take the fallback")
-    window = concat_relations(epochs, ("auction", "bid"))
-    want = numpy_q4(window["auction"], window["bid"])
-    _same_rows(results[0].columns, want, ["category", "avg_final"],
-               "q4 duplicate window vs numpy q4")
-    print(f"duplicates: fallback_runs={driver.executor.fallback_runs} "
-          f"rows={len(want['category'])} ok", flush=True)
+    window = concat_relations(epochs, ("person", "auction", "bid"))
+    for q, reruns in ((4, 1), (9, 1), (3, 0)):
+        spec = get_query(q)
+        driver = StreamDriver(spec, seconds, device="cuda")
+        driver._window_epoch_ranges = lambda: [
+            (("win", 0, seconds), list(range(seconds)))]
+        results = driver.run(epochs)
+        if driver.executor.fallback_runs != reruns:
+            raise AssertionError(f"q{q} duplicate window: fallback_runs "
+                                 f"{driver.executor.fallback_runs}, not "
+                                 f"{reruns}")
+        want = numpy_query(q, window)
+        _same_row_set(results[0].columns, want, spec.schema.names,
+                      f"q{q} duplicate window vs numpy")
+        print(f"duplicates q{q}: fallback_runs={driver.executor.fallback_runs}"
+              f" rows={len(want[spec.schema.names[0]])} ok", flush=True)
+    dup = _duplicate_persons(window)
+    spec = get_query(3)
+    ex = LocalExecutor(spec, device="cuda")
+    got = ex.materialize(ex.execute_window(
+        {r: dup[r] for r in spec.relations}))
+    want = numpy_q3(dup)
+    if ex.fallback_runs != 1:
+        raise AssertionError(f"q3 duplicate persons: fallback_runs "
+                             f"{ex.fallback_runs}, not 1")
+    _same_row_set(got, want, spec.schema.names,
+                  "q3 duplicate persons vs numpy")
+    print(f"duplicates q3 (persons repeated): fallback_runs={ex.fallback_runs}"
+          f" rows={len(want['a_id'])} ok", flush=True)
+
+
+def kernels_line(cases: list[dict], launches: dict[int, dict]) -> dict:
+    """One entry per kernel: its cases on the main path summed, its
+    launches over every query's main-path run (and per query)."""
+    out = []
+    for name, (source, replaces) in KERNELS.items():
+        mine = [c for c in cases if c["kernel"] == name]
+        main = [c for c in mine if c["main_path"]]
+        total = {k: sum(c[k] for c in main)
+                 for k in ("ms", "plain_ms", "library_ms", "kernel_device_ms",
+                           "bound_ms", "bound_copy_ms")}
+        by_query = {f"q{q}": ln[name] for q, ln in launches.items()}
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(by_query.values()),
+            "launches_by_query": by_query,
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "exact": all(c["exact"] for c in mine),
+            **total, "bound_by": "bytes"})
+    return {"kernels": out}
 
 
 def main() -> int:
+    from flock_tpu_torch.runtime.stream import generate_epochs
+
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     card_line = card()
     env = phase_env(card_line)
     cases = phase_kernels(env)
-    launches = phase_q4(card_line)
-    kernels = []
-    for name, prefix in (("join_agg", "join_agg"), ("dense_agg", "dense_agg/")):
-        mine = [c for c in cases if c["case"].startswith(prefix)]
-        total = {k: sum(c[k] for c in mine)
-                 for k in ("ms", "plain_ms", "library_ms", "kernel_device_ms",
-                           "bound_ms", "bound_copy_ms")}
-        kernels.append({
-            "name": name, "route": "cuda", "source": mine[0]["source"],
-            "replaces": mine[0]["replaces"], "launches": launches[name],
-            "max_abs_err": max(c["max_abs_err"] for c in mine),
-            "exact": all(c["exact"] for c in mine),
-            "kernel_ms": total["ms"], **total,
-            "bound_by": "bytes" if all(c["bound_by"] == "bytes" for c in mine)
-            else "operations"})
-    print(json.dumps({"kernels": kernels}), flush=True)
+    launches = {}
+    t0 = time.perf_counter()
+    epochs = generate_epochs(BENCH_SECONDS, BENCH_EPS, 1)
+    gen_s = time.perf_counter() - t0
+    for q in (4, 9, 13):
+        launches[q] = phase_query(q, epochs, BENCH_SECONDS, BENCH_EPS, gen_s,
+                                  card_line)
+    del epochs
+    t0 = time.perf_counter()
+    epochs = generate_epochs(BENCH_SECONDS, Q3_EPS, 1)
+    gen_s = time.perf_counter() - t0
+    launches[3] = phase_query(3, epochs, BENCH_SECONDS, Q3_EPS, gen_s,
+                              card_line)
+    del epochs
+    print(json.dumps(kernels_line(cases, launches)), flush=True)
     phase_duplicates()
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {

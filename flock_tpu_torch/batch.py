@@ -141,7 +141,9 @@ class Batch:
 
 @dataclass
 class Schema:
-    """Host-side metadata: column order and timestamp columns.
+    """Host-side metadata: column order, dictionaries (the vocabulary of
+    each dictionary-coded column) and timestamp columns, in the reference's
+    field order.
 
     ``f64_recompute`` maps an output column to an exact float64 recompute
     recipe applied at the sink from carried integer basis columns:
@@ -149,5 +151,6 @@ class Schema:
     """
 
     names: list[str]
+    dictionaries: dict[str, list[str]] = field(default_factory=dict)
     timestamp_cols: tuple[str, ...] = ()
     f64_recompute: dict[str, tuple] = field(default_factory=dict)

@@ -1,5 +1,6 @@
 """Masked columnar operators in plain PyTorch — the counterpart of
-``flock_tpu/ops/kernels.py`` for what q4 and its duplicate fallback need.
+``flock_tpu/ops/kernels.py`` for what q3, q4, q9, q13 and their duplicate
+fallbacks need.
 
 The contract is the reference's: every op is fixed-capacity (``[capacity]``
 tensors plus a ``valid`` mask), and an op that can exceed a static output
@@ -7,7 +8,8 @@ capacity returns its overflow as a 0-d bool tensor, with no host sync
 inside the op.  PyTorch has real scatters (``index_add_``,
 ``scatter_reduce_``), so the plain forms are scatters; the blocked one-hot
 formulations the TPU needed have no counterpart here.  Dense int32
-aggregation goes to kernel K2 (``ops/dense_agg.py``).
+aggregation goes to kernel K2 (``ops/dense_agg.py``), the probe side of a
+lookup join to kernel K3 (``ops/gather.py``).
 """
 
 from __future__ import annotations
@@ -18,8 +20,8 @@ import torch
 
 from flock_tpu_torch.config import CONFIG
 from flock_tpu_torch.ops.dense_agg import FNS as _K2_FNS
-from flock_tpu_torch.ops.dense_agg import (I32_MAX, dense_agg,
-                                           dense_agg_plain, min_valid)
+from flock_tpu_torch.ops.dense_agg import I32_MAX, dense_agg, dense_agg_plain
+from flock_tpu_torch.ops.gather import gather
 
 
 def _shift_ne(k: torch.Tensor) -> torch.Tensor:
@@ -194,52 +196,71 @@ def lookup_join(build_cols: dict[str, torch.Tensor], build_valid: torch.Tensor,
                 build_key: str, probe_cols: dict[str, torch.Tensor],
                 probe_valid: torch.Tensor, probe_key: str,
                 take: dict[str, str], out_capacity: int | None = None,
-                span_margin: int | None = None, rebase: bool = True):
-    """Inner join, duplicate-faithful: probe rows keep their slots and gather
-    the matched build columns; every build row beyond the first with the
-    same key emits one more joined row into the free slots of an
-    ``out_capacity``-row output (DataFusion hash-join semantics).  Extras
-    beyond the free slots raise overflow (callers widen and retry).
+                span_margin: int | None = None, build_slotted: bool = False,
+                dup_expand: bool = True, fallback: bool = False):
+    """Inner join: probe rows keep their slots and gather the matched build
+    columns (kernel K3, ``ops/gather.py``); unmatched probe rows become
+    invalid.  Three modes, as in the reference:
 
-    The build side is slotted by key with ``dense_group_aggregate`` (max of
-    the taken columns plus a duplicate count); unique keys gather by direct
-    index, duplicates take the sort-merge fan-out.  Both answers are
-    computed and ``has_dups`` picks one, so the op needs no host sync.
-    Returns (out_cols, out_valid, overflow, escape) at
-    ``max(out_capacity, n)`` rows; ``rebase`` and ``escape`` are those of the
-    slotting ``dense_group_aggregate``.
+    * ``build_slotted``: the build side is already a dense-slot aggregate
+      output (slot i holds key ``bk[0] + i``, one row per slot), reused as
+      it stands — no slotting, no duplicate check;
+    * ``dup_expand=False`` (a declared-unique build, q13's side input): the
+      build is slotted by key with ``dense_group_aggregate`` (kernel K2: max
+      of the taken columns plus a row count per key), and duplicate keys
+      raise overflow;
+    * duplicate-faithful (the default): slotted the same way, and duplicate
+      keys raise ``escape``.  The executor's rerun lowers the plan with
+      ``fallback=True``, where every build row beyond the first with the
+      same key emits one more joined row into the free slots of an
+      ``out_capacity``-row output (DataFusion hash-join semantics, the
+      sort-merge fan-out below); extras beyond the free slots raise
+      overflow (callers widen and retry).  The reference picks the fan-out
+      on the device (``lax.cond``); here a clean window never runs it.
+
+    Returns (out_cols, out_valid, overflow, escape) at ``n`` rows for a
+    slotted or unique build, else at ``max(out_capacity, n)``.  ``fallback``
+    also aggregates int64 slot columns by scatter, never rebased (the
+    ``rebase`` of ``dense_group_aggregate``, whose escape rides along).
     """
     if span_margin is None:
         span_margin = CONFIG.join_span_margin
     bk = build_cols[build_key]
     take_list = list(take)
-    span = bk.shape[0] + span_margin
-    slot_aggs = [(src, "max", src) for src in take_list] \
-        + [(None, "count", "__dupcnt")]
-    slots, present, ovf_b, esc = dense_group_aggregate(
-        {build_key: bk, **{src: build_cols[src] for src in take_list}},
-        build_valid, build_key, slot_aggs, span, rebase)
-    has_dups = (slots.pop("__dupcnt") > 1).any()
-    m = min_valid(bk, build_valid)
+    dev = bk.device
+    if build_slotted:
+        slots, present, m = build_cols, build_valid, bk[0]
+        ovf_b = esc = has_dups = torch.zeros((), dtype=torch.bool, device=dev)
+    else:
+        slot_aggs = [(src, "max", src) for src in take_list] \
+            + [(None, "count", "__dupcnt")]
+        slots, present, ovf_b, esc = dense_group_aggregate(
+            {build_key: bk, **{src: build_cols[src] for src in take_list}},
+            build_valid, build_key, slot_aggs, bk.shape[0] + span_margin,
+            rebase=not fallback)
+        has_dups = (slots.pop("__dupcnt") > 1).any()
+        m = slots[build_key][0]   # min(valid build keys), the key of slot 0
 
     pk = probe_cols[probe_key]
     n = pk.shape[0]
-    E = n if out_capacity is None else max(out_capacity, n)
-    dev = pk.device
+    expand = dup_expand and not build_slotted
+    E = n if out_capacity is None or not expand else max(out_capacity, n)
 
     def pad(a):
         if E == n:
             return a
         return torch.cat([a, torch.zeros(E - n, dtype=a.dtype, device=dev)])
 
-    # unique keys: direct-index gather from the slots
-    q = pk.to(torch.int64) - m.to(torch.int64)
-    ok = probe_valid & (q >= 0) & (q < span)
-    qc = torch.where(ok, q, 0)
-    clean_hit = pad(ok & present[qc])
-    clean_vals = [pad(slots[src][qc]) for src in take_list]
+    if not (expand and fallback):
+        gathered, hit = gather({src: slots[src] for src in take_list},
+                               present, m, pk, probe_valid)
+        out = {c: pad(col) for c, col in probe_cols.items()}
+        out.update({take[src]: pad(gathered[src]) for src in take_list})
+        if expand:
+            return out, pad(hit), ovf_b, esc | has_dups
+        return out, hit, ovf_b | has_dups, esc
 
-    # duplicates: sort the build side by key, locate each probe key's range
+    # the fan-out: sort the build side by key, locate each probe key's range
     # with two binary searches, emit the first duplicate in the probe's own
     # slot and every further one into the free slots (ranks enumerated with
     # cumsums and a rank → probe-row binary search: static shapes, no
@@ -265,12 +286,9 @@ def lookup_join(build_cols: dict[str, torch.Tensor], build_valid: torch.Tensor,
     bsrc = (lo[src] + f - excl[src] + 1).clamp(0, nb - 1)
     ex_ovf = n_extras > free.sum()
 
-    out = {}
-    for c, col in probe_cols.items():
-        out[c] = torch.where(has_dups & is_extra, col[src], pad(col))
-    for src_name, clean in zip(take_list, clean_vals):
+    out = {c: torch.where(is_extra, col[src], pad(col))
+           for c, col in probe_cols.items()}
+    for src_name in take_list:
         sb = build_cols[src_name][order]
-        dup = torch.where(is_extra, sb[bsrc], pad(sb[loc]))
-        out[take[src_name]] = torch.where(has_dups, dup, clean)
-    valid = torch.where(has_dups, hit0E | is_extra, clean_hit)
-    return out, valid, ovf_b | (has_dups & ex_ovf), esc
+        out[take[src_name]] = torch.where(is_extra, sb[bsrc], pad(sb[loc]))
+    return out, hit0E | is_extra, ovf_b | ex_ovf, esc

@@ -1,17 +1,20 @@
 """Static operator DAG and its lowering to PyTorch — the counterpart of
-``flock_tpu/plan.py`` for the node kinds q4 and its duplicate fallback reach
-(Scan, Filter, Project, Aggregate, Join, FusedJoinAggregate).
+``flock_tpu/plan.py`` for the node kinds q3, q4, q9 and q13 and their
+duplicate fallbacks reach (Scan, Filter, Project, Aggregate, Join,
+FusedJoinAggregate).
 
-The node classes, ``fuse_join_aggregates``, ``walk`` and
+The node classes, ``fuse_join_aggregates``, ``walk``, ``_slot_dense`` and
 ``dup_expand_capacity`` are the port's own copies (the TPU-only locality and
 limb hints are left out).  Lowering runs eagerly on the batches' device.
 
 Where the reference branches to the duplicate-faithful fallback on the
-device (``lax.cond``), the port returns the escape flag
-(``has_dups | slot_overflow | ~ok64``) as a 0-d tensor beside the overflow
-flag; the executor reads both once per window and, when the escape is set,
-lowers the plan again with every fused node replaced by its fallback and
-every int64 aggregate column left unrebased.
+device (``lax.cond``), the port returns the escape flag (duplicate build
+keys of a fused pass or of a duplicate-faithful join, slot overflow of a
+fused pass, an int64 range too wide to rebase) as a 0-d tensor beside the
+overflow flag; the executor reads both once per window and, when the escape
+is set, lowers the plan again with ``fallback=True``: every fused node
+replaced by its fallback, every duplicate-faithful join fanned out, every
+int64 aggregate column left unrebased.
 """
 
 from __future__ import annotations
@@ -98,10 +101,14 @@ class Aggregate(Node):
 
 @dataclass(frozen=True)
 class Join(Node):
-    """Inner lookup join (see ``kernels.lookup_join``), duplicate-faithful.
-    ``post_filter`` runs on the joined row (probe cols + taken build cols),
-    e.g. q4's interval predicate b_date_time BETWEEN a_date_time AND
-    expires."""
+    """Inner lookup join (see ``kernels.lookup_join``).  ``post_filter``
+    runs on the joined row (probe cols + taken build cols), e.g. q4's
+    interval predicate b_date_time BETWEEN a_date_time AND expires.
+
+    Duplicate build keys fan out (duplicate-faithful, DataFusion hash-join
+    semantics); ``unique_build=True`` declares that build keys cannot
+    duplicate (q13's side input), which skips the expansion buffer and turns
+    surprise duplicates into an overflow."""
 
     build: Node
     probe: Node
@@ -109,6 +116,7 @@ class Join(Node):
     probe_key: str
     take: tuple  # tuple[(build_col, out_name)]
     post_filter: Expr | None = None
+    unique_build: bool = False
 
     def inputs(self):
         return (self.build, self.probe)
@@ -138,6 +146,35 @@ class FusedJoinAggregate(Node):
         return (self.join,)
 
 
+def _sorted_by(node: Node, key: str) -> bool:
+    """True when ``node``'s rows arrive grouped by ``key``: a Rank or Sort
+    on that key below order-preserving Filters and Projects (the
+    reference's ``_sorted_by``).  Rank and Sort are not ported yet, so no
+    node of the port qualifies and this is always False."""
+    return False
+
+
+def _slot_dense(node: Node, key: str) -> bool:
+    """True when ``node`` lowers to a dense-slot relation keyed on ``key``
+    (slot i holds key ``col[0] + i``, gaps invalid): single-key Aggregates
+    (every ``dense_group_aggregate`` branch slots its output) and fused
+    join-aggregates without a secondary key.  Callers still check that the
+    key is an integer (float keys take the sort-based, non-slotted path)."""
+    while isinstance(node, Project):
+        src = dict(node.exprs).get(key)
+        if not isinstance(src, str):
+            return False
+        key = src
+        node = node.child
+    if isinstance(node, Aggregate):
+        return node.group_keys == (key,) and not _sorted_by(node.child, key)
+    if isinstance(node, FusedJoinAggregate):
+        # a secondary key means duplicate windows emit more than one row per
+        # primary key (the fallback's multi-key output is not slotted)
+        return node.group_key == key and node.group_key2 is None
+    return False
+
+
 def dup_expand_capacity(n_probe: int) -> int:
     """Join output capacity with fan-out headroom for duplicate build keys:
     half the probe capacity of free tail (128-aligned) on top of the probe's
@@ -163,8 +200,9 @@ def _false(device) -> torch.Tensor:
 def lower(node: Node, tables: dict[str, Batch], agg_capacity: int | None = None,
           fallback: bool = False) -> Lowered:
     """Recursively lower a plan over concrete input batches.  ``fallback``
-    lowers every fused node as its fallback subtree and aggregates int64
-    columns by scatter, never rebased (the escape rerun)."""
+    lowers every fused node as its fallback subtree, fans out every
+    duplicate-faithful join and aggregates int64 columns by scatter, never
+    rebased (the escape rerun)."""
     if isinstance(node, Scan):
         b = tables[node.relation]
         f = _false(b.valid.device)
@@ -195,11 +233,19 @@ def lower(node: Node, tables: dict[str, Batch], agg_capacity: int | None = None,
                 or p.cols[node.probe_key].is_floating_point():
             raise NotImplementedError(
                 "Join on float keys (sorted_lookup_join) is not ported")
+        # the escape rerun keeps a slotted build slotted: a fused node lowers
+        # to its single-key Aggregate, which slots its output too
+        b_slotted = _slot_dense(node.build, node.build_key)
+        if b_slotted and _slot_dense(node.probe, node.probe_key):
+            raise NotImplementedError(
+                "Join of two slot-dense sides (slot_join) is not ported")
+        exp_cap = None
+        if not node.unique_build and not b_slotted:
+            exp_cap = dup_expand_capacity(p.valid.shape[0])
         cols, valid, ovf, esc = kernels.lookup_join(
             b.cols, b.valid, node.build_key, p.cols, p.valid, node.probe_key,
-            dict(node.take),
-            out_capacity=dup_expand_capacity(p.valid.shape[0]),
-            rebase=not fallback)
+            dict(node.take), out_capacity=exp_cap, build_slotted=b_slotted,
+            dup_expand=not node.unique_build, fallback=fallback)
         if node.post_filter is not None:
             valid = valid & node.post_filter(cols)
         return Lowered(cols, valid, b.overflow | p.overflow | ovf,

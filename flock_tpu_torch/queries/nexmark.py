@@ -1,12 +1,19 @@
 """NEXMark query plans with torch expressions — the counterpart of
-``flock_tpu/queries/nexmark.py`` (``QuerySpec``, ``_winning_bid_interval``
-and ``q4``; the other queries are later slices of the port).
+``flock_tpu/queries/nexmark.py`` (``QuerySpec``, ``_winning_bid_interval``,
+q3, q4, q9 and q13; the other queries are later slices of the port).
 
-q4.sql: the average winning price per category, where a bid wins an auction
-when it is the highest bid placed between the auction's start and expiry.
-Windows are element-wise (one per epoch).  The device computes the average
-in f32 beside the exact integer sum and count; the sink recomputes it in
-f64 from those.
+Windows are element-wise (one per epoch) for all four, as in the reference
+(main.rs:116-122).
+
+- q3.sql: names, cities and states of sellers in Oregon, Idaho or
+  California with an auction in category 10 (person ⋈ auction).
+- q4.sql: the average winning price per category, where a bid wins an
+  auction when it is the highest bid placed between the auction's start and
+  expiry.  The device computes the average in f32 beside the exact integer
+  sum and count; the sink recomputes it in f64 from those.
+- q9.sql: the winning bids themselves (every bid whose price equals its
+  auction's winning price).
+- q13.sql: every bid joined to a bounded side-input table on its auction id.
 """
 
 from __future__ import annotations
@@ -16,7 +23,15 @@ from dataclasses import dataclass
 import torch
 
 from flock_tpu_torch.batch import Schema
-from flock_tpu_torch.plan import Aggregate, Conj, Join, Node, Project, Scan
+from flock_tpu_torch.datagen.nexmark import (FIRST_NAMES, LAST_NAMES,
+                                             US_CITIES, US_STATES)
+from flock_tpu_torch.plan import (Aggregate, Conj, Filter, Join, Node, Project,
+                                  Scan)
+
+# state dictionary codes (vocabulary order: az,ca,id,or,wa,wy)
+_CA, _ID, _OR = US_STATES.index("ca"), US_STATES.index("id"), US_STATES.index("or")
+
+NAME_VOCAB = [f"{f} {l}" for f in FIRST_NAMES for l in LAST_NAMES]
 
 
 @dataclass(frozen=True)
@@ -38,6 +53,28 @@ def _winning_bid_interval(extra_take: tuple = ()) -> Node:
         take=(("a_date_time", "a_date_time"), ("expires", "expires")) + extra_take,
         post_filter=Conj((("b_date_time", ">=", "a_date_time"),
                           ("b_date_time", "<=", "expires"))),
+    )
+
+
+def q3() -> QuerySpec:
+    person = Filter(
+        Scan("person"),
+        lambda c: (c["state"] == _OR) | (c["state"] == _ID) | (c["state"] == _CA),
+        "state in (or,id,ca)",
+    )
+    auction = Filter(Scan("auction"), lambda c: c["category"] == 10,
+                     "category=10")
+    plan = Project(
+        Join(build=person, probe=auction, build_key="p_id", probe_key="seller",
+             take=(("name", "name"), ("city", "city"), ("state", "state"))),
+        (("name", "name"), ("city", "city"), ("state", "state"),
+         ("a_id", "a_id")),
+    )
+    return QuerySpec(
+        3, plan, ("elementwise",), ("person", "auction"),
+        Schema(["name", "city", "state", "a_id"],
+               dictionaries={"name": NAME_VOCAB, "city": US_CITIES,
+                             "state": US_STATES}),
     )
 
 
@@ -68,7 +105,46 @@ def q4() -> QuerySpec:
                      Schema(["category", "avg_final"]))
 
 
-QUERIES = {4: q4}
+def q9() -> QuerySpec:
+    # the fused winning-bid pass slots its output by auction id, so the second
+    # join reuses those slots as its build side (kernels.lookup_join
+    # build_slotted); its post-filter runs on the joined rows
+    final_per_auction = Aggregate(
+        _winning_bid_interval(),
+        group_keys=("auction",),
+        aggs=(("price", "max", "final"),),
+    )
+    plan = Project(
+        Join(build=final_per_auction, probe=Scan("bid"),
+             build_key="auction", probe_key="auction",
+             take=(("final", "final"),),
+             post_filter=lambda c: c["price"] == c["final"]),
+        (("auction", "auction"), ("bidder", "bidder"), ("price", "price"),
+         ("b_date_time", "b_date_time")),
+    )
+    return QuerySpec(9, plan, ("elementwise",), ("auction", "bid"),
+                     Schema(["auction", "bidder", "price", "b_date_time"],
+                            timestamp_cols=("b_date_time",)))
+
+
+def q13() -> QuerySpec:
+    # q13.sql joins ON auction = key directly.  side_input is a bounded
+    # (key int32, value int32) table the runtime stages once per run
+    # (runtime/tables.default_side_input, or a CSV)
+    plan = Project(
+        Join(build=Scan("side_input"), probe=Scan("bid"),
+             build_key="key", probe_key="auction",
+             take=(("value", "value"),),
+             unique_build=True),  # catalog fact: side-input keys are unique
+        (("auction", "auction"), ("bidder", "bidder"), ("price", "price"),
+         ("b_date_time", "b_date_time"), ("value", "value")),
+    )
+    return QuerySpec(13, plan, ("elementwise",), ("bid", "side_input"),
+                     Schema(["auction", "bidder", "price", "b_date_time",
+                             "value"], timestamp_cols=("b_date_time",)))
+
+
+QUERIES = {3: q3, 4: q4, 9: q9, 13: q13}
 
 
 def get_query(n: int) -> QuerySpec:

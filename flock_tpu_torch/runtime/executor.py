@@ -3,16 +3,18 @@
 
 Host columns → fixed-capacity device Batches → the plan run eagerly on the
 device → host materialization with timestamp restore and the exact f64 sink
-columns.  Each window reads its overflow and escape flags in one host sync;
-an escape (duplicate build keys, slot overflow in a fused pass, or an int64
-column too wide to rebase to int32) reruns the plan with the
-duplicate-faithful fallback and the unrebased scatter, and is counted in
-``fallback_runs``.
+columns.  Static relations (q13's ``side_input``) are staged on the device
+once and merged into every window's tables, as the reference hands its
+``static_tables`` to ``execute_epochs``.  Each window reads its overflow
+and escape flags in one host sync; an escape (duplicate build keys, slot
+overflow in a fused pass, or an int64 column too wide to rebase to int32)
+reruns the plan with the duplicate-faithful fallback and the unrebased
+scatter, and is counted in ``fallback_runs``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -22,6 +24,7 @@ from flock_tpu_torch.batch import TS_BASE, Batch, round_up
 from flock_tpu_torch.config import CONFIG
 from flock_tpu_torch.plan import compile_plan
 from flock_tpu_torch.queries.nexmark import QuerySpec
+from flock_tpu_torch.runtime.tables import default_side_input, window_relations
 
 
 class OverflowError(RuntimeError):
@@ -34,10 +37,22 @@ class LocalExecutor:
     spec: QuerySpec
     agg_capacity: int | None = None
     device: torch.device | str | None = None  # None → cuda (raises without)
+    side_input: dict | None = None  # q13's table; None → default_side_input()
     fallback_runs: int = 0
+    _statics: dict | None = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+
+    def statics(self) -> dict[str, Batch]:
+        """The query's static relations (q13's ``side_input``) as device
+        Batches, staged on first use and shared by every window."""
+        if self._statics is None:
+            self._statics = {}
+            if "side_input" in self.spec.relations:
+                self._statics = self.prepare_window(
+                    {"side_input": self.side_input or default_side_input()})
+        return self._statics
 
     def prepare_window(self, tables: dict[str, dict[str, np.ndarray]],
                        capacities: dict[str, int] | None = None
@@ -53,15 +68,20 @@ class LocalExecutor:
 
     def execute_batches(self, batches: dict[str, Batch],
                         check_overflow: bool = True) -> Batch:
-        """Run the plan over device-resident Batches (compute only)."""
+        """Run the plan over device-resident Batches (compute only); the
+        static relations join them without another copy.  The aggregate
+        capacity follows the window's relations, as the reference's
+        ``execute_epochs``."""
         agg_cap = self.agg_capacity or (
-            max(b.capacity for b in batches.values()) + CONFIG.agg_span_margin)
+            max(batches[r].capacity for r in window_relations(batches))
+            + CONFIG.agg_span_margin)
+        tables = {**self.statics(), **batches}
         fn = compile_plan(self.spec.plan, agg_cap)
-        out, overflow, escape = fn(batches)
+        out, overflow, escape = fn(tables)
         overflow, escape = torch.stack([overflow, escape]).tolist()
         if escape:
             self.fallback_runs += 1
-            out, overflow, _ = fn(batches, fallback=True)
+            out, overflow, _ = fn(tables, fallback=True)
             overflow = bool(overflow)
         if check_overflow and overflow:
             caps = tuple(sorted((r, b.capacity) for r, b in batches.items()))

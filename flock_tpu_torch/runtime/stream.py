@@ -1,8 +1,9 @@
 """Stream driver — the counterpart of ``flock_tpu/runtime/stream.py``, cut
-down to what the q4 slice needs: ``generate_epochs`` and a
+down to what the q3/q4/q9/q13 slices need: ``generate_epochs`` and a
 ``StreamDriver`` for element-wise windows (one window per epoch,
 elementwise.rs in the reference) with the overflow widen-and-retry of
-``_execute_all``.  Other window kinds raise.
+``_execute_all``, and q13's side input staged once per driver.  Other window
+kinds raise.
 """
 
 from __future__ import annotations
@@ -17,7 +18,9 @@ from flock_tpu_torch.datagen.native_gen import nexmark_generate_partition
 from flock_tpu_torch.datagen.nexmark import NexmarkConfig
 from flock_tpu_torch.queries.nexmark import QuerySpec, get_query
 from flock_tpu_torch.runtime.executor import LocalExecutor, OverflowError
-from flock_tpu_torch.runtime.tables import concat_relations, epoch_to_relations
+from flock_tpu_torch.runtime.tables import (concat_relations,
+                                            epoch_to_relations,
+                                            window_relations)
 
 
 def generate_epochs(seconds: int, events_per_second: int, generators: int = 1
@@ -49,10 +52,11 @@ class WindowResult:
 
 class StreamDriver:
     def __init__(self, spec: QuerySpec, seconds: int,
+                 side_input: dict | None = None,
                  agg_capacity: int | None = None, device=None):
         self.spec = spec
         self.seconds = seconds
-        self.executor = LocalExecutor(spec, agg_capacity, device)
+        self.executor = LocalExecutor(spec, agg_capacity, device, side_input)
 
     def _window_epoch_ranges(self):
         """Window tag → epoch list (element-wise windows only)."""
@@ -62,10 +66,11 @@ class StreamDriver:
         return [(("epoch", t), [t]) for t in range(self.seconds)]
 
     def windows(self, epochs: list[dict]) -> list[tuple]:
-        """(tag, relation tables) for every window of the stream."""
+        """(tag, relation tables) for every window of the stream; the
+        static side input is the executor's, not a window's."""
         return [(tag, concat_relations([epochs[t] for t in rng
                                         if t < len(epochs)],
-                                       self.spec.relations))
+                                       window_relations(self.spec.relations)))
                 for tag, rng in self._window_epoch_ranges()]
 
     def run(self, epochs: list[dict]) -> list[WindowResult]:
@@ -106,9 +111,11 @@ class StreamDriver:
 
 
 def run_nexmark(query: int, seconds: int = 2, events_per_second: int = 1000,
-                generators: int = 1, device=None) -> list[WindowResult]:
+                generators: int = 1, side_input: dict | None = None,
+                device=None) -> list[WindowResult]:
     """End to end: generate → window → execute → materialize, on ``device``
-    (``None`` → ``cuda``)."""
+    (``None`` → ``cuda``).  ``side_input`` is q13's table (``None`` →
+    ``default_side_input()``)."""
     spec = get_query(query)
-    driver = StreamDriver(spec, seconds, device=device)
+    driver = StreamDriver(spec, seconds, side_input=side_input, device=device)
     return driver.run(generate_epochs(seconds, events_per_second, generators))

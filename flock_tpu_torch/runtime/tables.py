@@ -1,5 +1,6 @@
-"""Relation tables: host-side columnar views over generated epochs — copies
-of ``epoch_to_relations`` and ``concat_relations`` from
+"""Relation tables: host-side columnar views over generated epochs and q13's
+bounded side input — copies of ``epoch_to_relations``, ``concat_relations``,
+``default_side_input`` and ``load_side_input_csv`` from
 ``flock_tpu/runtime/tables.py``.
 
 Both executors take the same ``{relation: {column: np.ndarray}}`` dicts.
@@ -16,6 +17,7 @@ RELATION_COLS = {
     "auction": ("a_id", "initial_bid", "reserve", "a_date_time", "expires",
                 "seller", "category"),
     "bid": ("auction", "bidder", "price", "b_date_time"),
+    "side_input": ("key", "value"),
 }
 
 
@@ -50,3 +52,27 @@ def concat_relations(parts: list[dict[str, dict[str, np.ndarray]]],
                           else np.array([], dtype=np.int32))
         out[rel] = cols
     return out
+
+
+def window_relations(relations: tuple[str, ...]) -> tuple[str, ...]:
+    """The relations a window carries: all but the static side input, which
+    is staged once per run and shared by every window."""
+    return tuple(r for r in relations if r != "side_input")
+
+
+def default_side_input(n: int = 10_000) -> dict[str, np.ndarray]:
+    """Bounded side-input table for q13 (key int32, value int32).
+
+    The reference fixture is a 2-column CSV keyed by auction id; this
+    generates key=i, value=i for i in [1000, 1000+n) so hot and normal
+    auction ids all find matches (first_auction_id = 1000).  Load a real CSV
+    with ``load_side_input_csv``.
+    """
+    k = np.arange(1000, 1000 + n, dtype=np.int32)
+    return {"key": k, "value": k.copy()}
+
+
+def load_side_input_csv(path: str) -> dict[str, np.ndarray]:
+    data = np.loadtxt(path, delimiter=",", dtype=np.int64, ndmin=2)
+    return {"key": data[:, 0].astype(np.int32),
+            "value": data[:, 1].astype(np.int32)}

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions on the card, and the
-q4 slice on the card against the CPU path.  Skipped without a CUDA card.
+q3, q4, q9 and q13 slices on the card against the CPU path.  Skipped without
+a CUDA card.
 
 This file imports only ``flock_tpu_torch`` (no JAX), so it runs on a machine
 without JAX; there, skip this directory's conftest (it configures JAX):
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from flock_tpu_torch.ops.dense_agg import dense_agg, dense_agg_plain
+from flock_tpu_torch.ops.gather import gather, gather_plain
 from flock_tpu_torch.ops.join_agg import join_agg_plain, join_aggregate
 from flock_tpu_torch.plan import Conj
 from flock_tpu_torch.queries.nexmark import get_query
@@ -125,18 +127,57 @@ def test_join_agg_refuses_opaque_predicate(dev):
                        lambda c: c["t"] > 0, [(None, "count", "c")])
 
 
-@pytest.mark.parametrize("seconds,eps,gens", [(2, 20_000, 1), (10, 350, 3)])
-def test_q4_on_the_card_equals_cpu(dev, seconds, eps, gens):
+@pytest.mark.parametrize("span,n,m", [(248_192, 300_000, 1000),
+                                       (18_304, 200_000, 1000), (7, 1000, -3)])
+def test_gather_kernel_equals_plain(dev, span, n, m):
+    """4- and 8-byte columns, signed values, misses on both sides of the
+    span, absent slots, invalid rows, a negative m."""
+    rng = np.random.default_rng(span)
+
+    def t(x):
+        return torch.from_numpy(x).to(dev)
+
+    slots = {"a": t(rng.integers(-(2**31), 2**31, span).astype(np.int32)),
+             "ts": t(rng.integers(-(2**62), 2**62, span).astype(np.int64)),
+             "f": t(rng.random(span).astype(np.float32))}
+    present = t(rng.random(span) < 0.8)
+    keys = t((m + rng.integers(-50, span + 50, n)).astype(np.int32))
+    valid = t(rng.random(n) < 0.9)
+    mm = torch.tensor(m, dtype=torch.int32, device=dev)
+    got, ghit = gather(slots, present, mm, keys, valid)
+    want, whit = gather_plain(slots, present, mm, keys, valid)
+    assert torch.equal(ghit, whit) and ghit.any() and not ghit.all()
+    _same(got, want)
+
+
+def _card_and_cpu(dev, q, seconds, eps, gens):
     epochs = generate_epochs(seconds, eps, gens)
     runs = []
     for device in (dev, "cpu"):
-        driver = StreamDriver(get_query(4), seconds, device=device)
+        driver = StreamDriver(get_query(q), seconds, device=device)
         if gens > 1:
             driver._window_epoch_ranges = lambda: [
                 (("win", 0, seconds), list(range(seconds)))]
         runs.append((driver.run(epochs), driver.executor.fallback_runs))
     (gpu, gpu_fb), (cpu, cpu_fb) = runs
-    assert gpu_fb == cpu_fb == (1 if gens > 1 else 0)
+    assert gpu_fb == cpu_fb
     for g, c in zip(gpu, cpu):
-        for name in ("category", "avg_final"):
+        for name in get_query(q).schema.names:
             np.testing.assert_array_equal(g.columns[name], c.columns[name])
+    return gpu_fb
+
+
+@pytest.mark.parametrize("seconds,eps,gens", [(2, 20_000, 1), (10, 350, 3)])
+def test_q4_on_the_card_equals_cpu(dev, seconds, eps, gens):
+    assert _card_and_cpu(dev, 4, seconds, eps, gens) == (1 if gens > 1 else 0)
+
+
+@pytest.mark.parametrize("q,seconds,eps,gens,reruns", [
+    (9, 2, 20_000, 1, 0), (9, 10, 350, 3, 1), (3, 2, 20_000, 1, 0),
+    (3, 10, 350, 3, 0), (13, 2, 20_000, 1, 0)])
+def test_lookup_join_queries_on_the_card_equal_cpu(dev, q, seconds, eps, gens,
+                                                   reruns):
+    """q9's second join gathers through K3 from the fused pass's slots;
+    q3's person join and q13's side-input join slot with K2 first.  Only
+    q9's G=3 window holds duplicate build keys (auction ids)."""
+    assert _card_and_cpu(dev, q, seconds, eps, gens) == reruns

@@ -1,7 +1,9 @@
-"""The port's plain operators against ``flock_tpu.ops.kernels``: the
-duplicate-faithful ``lookup_join`` fan-out, the multi-key sort-based
-``group_aggregate``, ``sort_rows`` and the scatter and int64-rebase branches
-of ``dense_group_aggregate``.  Exact comparisons (PyTorch port, CPU)."""
+"""The port's plain operators against ``flock_tpu.ops.kernels``:
+``lookup_join`` in its three modes (duplicate-faithful, with the escape and
+the fan-out of the rerun; slotted build; unique build), the multi-key
+sort-based ``group_aggregate``, ``sort_rows`` and the scatter and
+int64-rebase branches of ``dense_group_aggregate``.  Exact comparisons
+(PyTorch port, CPU)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,10 +30,11 @@ def _t(d):
 
 
 def _assert_rows(got, want, names):
-    """Same validity and the same values in every valid row; the port's
-    escape flag stays clear."""
+    """Same shape, same validity and the same values in every valid row;
+    the port's escape flag stays clear."""
     gc, gv, go, ge = got
     assert not bool(ge)
+    assert gv.shape == np.asarray(want[1]).shape
     wc, wv, wo = want
     gv, wv = gv.numpy(), np.asarray(wv)
     np.testing.assert_array_equal(gv, wv)
@@ -58,8 +61,16 @@ def _join_inputs(seed, dups: bool, nb=600, n=2000):
     return build, bvalid, probe, pvalid
 
 
+def _lookup_join(build, bvalid, probe, pvalid, take, **kw):
+    return kernels.lookup_join(_t(build), torch.from_numpy(bvalid), "a_id",
+                               _t(probe), torch.from_numpy(pvalid), "auction",
+                               take, **kw)
+
+
 @pytest.mark.parametrize("seed,dups", [(0, True), (1, True), (2, False)])
 def test_lookup_join_matches_reference(seed, dups):
+    """Duplicate keys fan out in the rerun's mode (``fallback=True``), as
+    the reference's duplicate branch; unique keys take the gather."""
     build, bvalid, probe, pvalid = _join_inputs(seed, dups)
     take = {"a_ts": "a_ts", "cat": "category"}
     cap = dup_expand_capacity(len(pvalid))
@@ -67,13 +78,57 @@ def test_lookup_join_matches_reference(seed, dups):
     want = ref.lookup_join(_j(build), jnp.asarray(bvalid), "a_id", _j(probe),
                            jnp.asarray(pvalid), "auction", take,
                            out_capacity=cap)
-    got = kernels.lookup_join(_t(build), torch.from_numpy(bvalid), "a_id",
-                              _t(probe), torch.from_numpy(pvalid), "auction",
-                              take, out_capacity=cap)
+    got = _lookup_join(build, bvalid, probe, pvalid, take, out_capacity=cap,
+                       fallback=dups)
     assert got[1].shape[0] == cap
     _assert_rows(got, want, ["auction", "price", "a_ts", "category"])
     if dups:
         assert int(got[1].sum()) > int(torch.from_numpy(pvalid).sum()) // 2
+
+
+@pytest.mark.parametrize("seed,dups", [(0, True), (2, False)])
+def test_lookup_join_escapes_on_duplicates(seed, dups):
+    """Outside the rerun, duplicate build keys set the escape flag and
+    nothing is sorted; unique keys leave it clear, and the rerun's fan-out
+    of a unique build equals the gather."""
+    build, bvalid, probe, pvalid = _join_inputs(seed, dups)
+    take = {"a_ts": "a_ts", "cat": "category"}
+    cap = dup_expand_capacity(len(pvalid))
+    got = _lookup_join(build, bvalid, probe, pvalid, take, out_capacity=cap)
+    assert bool(got[3]) == dups and not bool(got[2])
+    assert got[1].shape[0] == cap
+    if not dups:
+        fan = _lookup_join(build, bvalid, probe, pvalid, take,
+                           out_capacity=cap, fallback=True)
+        assert torch.equal(fan[1], got[1])
+        for k in ("auction", "price", "a_ts", "category"):
+            assert torch.equal(fan[0][k][fan[1]], got[0][k][got[1]]), k
+
+
+@pytest.mark.parametrize("mode", ["slotted", "unique", "unique_dups"])
+def test_lookup_join_slotted_and_unique_builds(mode):
+    """A slotted build (a dense-slot aggregate output, slot i ↔ key
+    ``bk[0] + i``) is gathered as it stands; a unique build keeps ``n`` rows
+    and turns duplicate keys into overflow, never an escape."""
+    build, bvalid, probe, pvalid = _join_inputs(3, mode == "unique_dups")
+    take = {"a_ts": "a_ts", "cat": "category"}
+    if mode == "slotted":
+        # the aggregate output the reference's build_slotted reuses
+        slot_cols, bvalid, _ = ref.dense_group_aggregate(
+            _j(build), jnp.asarray(bvalid), "a_id",
+            [("a_ts", "max", "a_ts"), ("cat", "max", "cat")], 1024)
+        build = {k: np.array(v) for k, v in slot_cols.items()}
+        bvalid = np.array(bvalid)
+    kw = {"build_slotted": True} if mode == "slotted" else {"dup_expand": False}
+    want = ref.lookup_join(_j(build), jnp.asarray(bvalid), "a_id", _j(probe),
+                           jnp.asarray(pvalid), "auction", take, **kw)
+    got = _lookup_join(build, bvalid, probe, pvalid, take, **kw)
+    assert got[1].shape[0] == len(pvalid)
+    if mode == "unique_dups":
+        assert bool(got[2]) and bool(want[2]) and not bool(got[3])
+        return
+    _assert_rows(got, want, ["auction", "price", "a_ts", "category"])
+    assert got[1].any()
 
 
 def test_lookup_join_fan_out_overflows():
@@ -85,7 +140,7 @@ def test_lookup_join_fan_out_overflows():
                            jnp.ones(n, bool), "k", {"v": "v"}, out_capacity=256)
     got = kernels.lookup_join(_t(build), torch.ones(nb, dtype=torch.bool), "k",
                               _t(probe), torch.ones(n, dtype=torch.bool), "k",
-                              {"v": "v"}, out_capacity=256)
+                              {"v": "v"}, out_capacity=256, fallback=True)
     assert bool(got[2]) and bool(want[2])
 
 
