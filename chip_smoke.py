@@ -12,9 +12,13 @@ and the script exits non-zero:
 1. environment: torch / CUDA / nvcc / triton versions, the card, the kernel
    build time, and the device-to-device copy bandwidth (1 GiB copy);
 2. each kernel against its plain PyTorch version on the same CUDA tensors,
-   at the shapes of one bench window of the queries that run it, exact
-   integer equality, with CUDA event timings of the kernel, the plain
-   version and the nearest single PyTorch call, and each case's byte bound;
+   at the shapes of one bench window of the queries that run it, and K1 and
+   K2 on adversarial shapes off the main path (every key on one slot, keys
+   K1's window misses, ragged and tiny inputs, no valid row, unaligned
+   columns, K2 on both sides of its shared-memory limit), exact integer
+   equality, with CUDA event timings of the kernel, the plain version and
+   the nearest single PyTorch call, the device operations per wrapper call,
+   and each case's byte bound;
 3. NEXMark q4, q9 and q13 at the bench size (4 s x 4 M events/s, the same
    generated epochs, element-wise windows) and q3 at its bench size (4 s x
    16 M events/s), each through ``StreamDriver`` on the card: every kernel
@@ -106,31 +110,41 @@ def cuda_ms(fn, reps: int = 15, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def profile(fn):
+def profile(fn, tries: int = 3):
     """Run ``fn`` under torch.profiler; the key averages of its device-side
     events (kernels, copies, fills).  The host-side operator events are left
-    out: their device time repeats that of the kernels they launched."""
+    out: their device time repeats that of the kernels they launched.  A
+    session that records no device event (the profiler drops one now and
+    then over the script's ~45 sessions) is run again, up to ``tries``
+    times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    for _ in range(tries):
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            return events
+    raise RuntimeError(f"the profiler saw no device event in {tries} tries")
 
 
-def kernel_device_ms(fn, kernel: str, reps: int = 10) -> float:
-    """Mean device time per call of the CUDA kernels whose name holds
-    ``kernel`` when ``fn`` runs, from the profiler.  Raises when the profiler
-    sees none."""
+def device_profile(fn, kernel: str, reps: int = 10) -> tuple[float, float]:
+    """(mean device ms per call of the CUDA kernels whose name holds
+    ``kernel``, device operations per call — kernels, copies and fills)
+    when ``fn`` runs, from the profiler.  A session that recorded no time
+    for ``kernel`` is run again; raises after three."""
     fn()
-    events = profile(lambda: [fn() for _ in range(reps)])
-    us = sum(e.self_device_time_total for e in events if kernel in e.key)
-    if not us:
-        raise RuntimeError(f"the profiler saw no device time ({kernel})")
-    return us / reps / 1e3
+    for _ in range(3):
+        events = profile(lambda: [fn() for _ in range(reps)])
+        us = sum(e.self_device_time_total for e in events if kernel in e.key)
+        if us:
+            return us / reps / 1e3, sum(e.count for e in events) / reps
+    raise RuntimeError(f"the profiler saw no device time ({kernel})")
 
 
 def nbytes(*tensors) -> int:
@@ -231,6 +245,125 @@ def _check_k3(slots, present, m, keys, valid, what):
     if min(counts) == 0:
         raise AssertionError(f"gather {what}: hits/misses/absent {counts}")
     return err, o1
+
+
+def _k1_bytes(slots, present, probe, pvalid, aggs) -> int:
+    """K1's inputs read once and its [span] outputs (count, key, validity
+    and one per aggregate) written once."""
+    span = present.shape[0]
+    outs = sum(8 if fn == "sum" else 4 for _, fn, _ in aggs if fn != "count")
+    return nbytes(*probe.values(), pvalid, present, *slots.values()) \
+        + span * (4 + 4 + 1 + outs)
+
+
+def _k2_bytes(keys, valid, cols, aggs, cap) -> int:
+    outs = sum(8 if fn == "sum" else 4 for _, fn, _ in aggs
+               if fn not in ("count", "dups"))
+    return nbytes(keys, valid, *cols.values()) + cap * (4 + 4 + 1 + outs)
+
+
+def _adversarial_cases(slots, present, m, probe, pvalid, pred, k1_aggs,
+                       rng) -> dict:
+    """K1 and K2 on shapes off the main path, each against its plain
+    version: every key on one slot (every lane of every warp collides), keys
+    uniform over the span (K1's window misses almost every pair), keys far
+    behind K1's window and before m, a span below the window, n below a
+    tile and not a multiple of 4, n = 1, no valid row, columns off a
+    16-byte boundary (element loads), and K2 at the largest capacity of its
+    shared-memory variant and the smallest of its global one."""
+    from flock_tpu_torch.ops.dense_agg import dense_agg, dense_agg_plain
+    from flock_tpu_torch.ops.join_agg import join_agg_plain, join_aggregate
+
+    dev = present.device
+    span, n = present.shape[0], pvalid.shape[0]
+    m0 = int(m)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def unaligned(x):
+        return torch.cat([x[:1], x])[1:]
+
+    cases = {}
+
+    def k1(name, sl, pr, pb, pv):
+        err, _ = _check_k1(sl, pr, m, pb, pv, pred, k1_aggs)
+        sp = pr.shape[0]
+        idx = (pb["auction"].to(torch.int64) - m0).clamp(0, sp)
+        buf = torch.full((sp + 1,), -2**31, dtype=torch.int32, device=dev)
+        cases[f"join_agg/{name}"] = dict(
+            kernel=lambda: join_aggregate(sl, pr, m, pb, pv, "auction", pred,
+                                          k1_aggs),
+            plain=lambda: join_agg_plain(sl, pr, m, pb, pv, "auction", pred,
+                                         k1_aggs),
+            library=lambda: buf.scatter_reduce_(0, idx, pb["price"], "amax"),
+            library_call="scatter_reduce_(amax) of price at the probe slots",
+            device_kernel="join_agg_kernel",
+            bytes=_k1_bytes(sl, pr, pb, pv, k1_aggs), err=err,
+            main_path=False)
+
+    hot = 1000   # a present slot whose interval holds most bid times
+    k1("one_slot", slots, present,
+       dict(probe, auction=torch.full_like(probe["auction"], m0 + hot)), pvalid)
+    k1("uniform", slots, present,
+       dict(probe, auction=t((m0 + rng.integers(-50, span + 50, n))
+                             .astype(np.int32))), pvalid)
+    r = rng.random(n)
+    far = np.where(r < 0.6, probe["auction"].cpu().numpy(),
+                   np.where(r < 0.85, m0 + rng.integers(0, span // 8, n),
+                            m0 - rng.integers(1, 5000, n)))
+    k1("behind_and_before", slots, present,
+       dict(probe, auction=t(far.astype(np.int32))), pvalid)
+    k1("small_span", {k: v[:100] for k, v in slots.items()}, present[:100],
+       dict(probe, auction=t((m0 + rng.integers(-20, 120, n))
+                             .astype(np.int32))), pvalid)
+    for name, rows in (("n_odd", 1003), ("n_1", 1)):
+        k1(name, slots, present, {k: v[:rows] for k, v in probe.items()},
+           pvalid[:rows])
+    k1("all_invalid", slots, present, probe, torch.zeros_like(pvalid))
+    k1("unaligned", slots, present,
+       {k: unaligned(v) for k, v in probe.items()}, unaligned(pvalid))
+
+    all_aggs = [(None, "count", "c"), ("v", "count_sum", "cs"),
+                ("v", "sum", "s"), ("v", "min", "mn"), ("v", "max", "mx"),
+                (None, "dups", "d")]
+    nk = 1_000_000
+    vals = t(rng.integers(-10**6, 10**6, nk).astype(np.int32))
+    kvalid = t(rng.random(nk) < 0.9)
+
+    def k2(name, keys, valid, cols, aggs, cap):
+        err, _ = _check_k2(keys, valid, cols, aggs, cap)
+        col0 = next(iter(cols.values())).to(torch.int64)
+        idx = (keys.to(torch.int64) - int(keys.min())).clamp(0, cap)
+        acc = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+        cases[f"dense_agg/{name}"] = dict(
+            kernel=lambda: dense_agg(keys, valid, cols, aggs, cap),
+            plain=lambda: dense_agg_plain(keys, valid, cols, aggs, cap),
+            library=lambda: acc.index_add_(0, idx, col0),
+            library_call="index_add_ of the first column",
+            device_kernel="dense_agg_",   # either variant
+            bytes=_k2_bytes(keys, valid, cols, aggs, cap), err=err,
+            main_path=False)
+
+    cat_aggs = [("v", "sum", "s"), (None, "count", "c")]
+    ncat = min(248_192, nk)   # the per-category pass's rows
+    k2("one_slot", torch.full((ncat,), 12, dtype=torch.int32, device=dev),
+       kvalid[:ncat], {"v": vals[:ncat]}, cat_aggs, 128)
+    k2("uniform", t(rng.integers(0, 300_000, nk).astype(np.int32)), kvalid,
+       {"v": vals}, all_aggs, 300_000)
+    for name, cap in (("cap_shared", 48 * 1024 // 28),
+                      ("cap_global", 48 * 1024 // 28 + 1)):
+        k2(name, t(rng.integers(0, cap, nk).astype(np.int32)), kvalid,
+           {"v": vals}, all_aggs, cap)
+    for name, rows in (("n_odd", 1003), ("n_1", 1)):
+        k2(name, t(rng.integers(10, 15, rows).astype(np.int32)),
+           kvalid[:rows], {"v": vals[:rows]}, cat_aggs, 128)
+    k2("all_invalid", t(rng.integers(0, 300_000, nk).astype(np.int32)),
+       torch.zeros_like(kvalid), {"v": vals}, all_aggs, 300_000)
+    uk = t(rng.integers(0, 300_000, nk).astype(np.int32))
+    k2("unaligned", unaligned(uk), unaligned(kvalid), {"v": unaligned(vals)},
+       all_aggs, 300_000)
+    return cases
 
 
 def phase_kernels(env: dict) -> list[dict]:
@@ -431,19 +564,22 @@ def phase_kernels(env: dict) -> list[dict]:
             + kk.numel(),
             err=err)
     out = []
+    cases.update(_adversarial_cases(slots, present, m, probe, pvalid, pred,
+                                    k1_aggs, rng))
     for name, c in cases.items():
         # ms / plain_ms / library_ms: CUDA-event medians of the wrapper, of
         # the plain version and of the library call, each the whole call;
         # kernel_device_ms: the profiler's mean device time of the CUDA
-        # kernel alone; bound_ms: the bytes over the data sheet's rate,
-        # bound_copy_ms: over this run's measured copy rate
+        # kernel alone, device_ops_per_call: the device events (kernels,
+        # copies, fills) per wrapper call; bound_ms: the bytes over the data
+        # sheet's rate, bound_copy_ms: over this run's measured copy rate
         kernel = name.split("/")[0]
+        dev_ms, ops = device_profile(c["kernel"], c["device_kernel"])
         rec = {"case": name, "kernel": kernel,
                "ms": cuda_ms(c["kernel"]),
                "plain_ms": cuda_ms(c["plain"]),
                "library_ms": cuda_ms(c["library"]),
-               "kernel_device_ms": kernel_device_ms(c["kernel"],
-                                                    c["device_kernel"]),
+               "kernel_device_ms": dev_ms, "device_ops_per_call": ops,
                "library_call": c["library_call"],
                "bytes": c["bytes"],
                "bound_ms": c["bytes"] / PEAK_BYTES_S * 1e3,

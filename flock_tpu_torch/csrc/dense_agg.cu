@@ -2,214 +2,280 @@
 //
 // Replaces: flock_tpu/pallas/factored.py pallas_factored_agg (kernel
 // _agg_kernel :405-457, pallas_call :487).  Its contract is also that of
-// flock_tpu/pallas/agg.py pallas_local_agg and of the XLA formulations
-// ops/blocked.py blocked_local_agg / full_onehot_agg.
+// flock_tpu/pallas/agg.py pallas_local_agg and pallas_count_max_agg and of
+// the XLA formulations ops/blocked.py blocked_local_agg / full_onehot_agg.
 //
-// Contract.  Slot i holds key m + i, where m = min(valid keys) is a device
-// scalar the caller computes (no host round trip).  Per slot: the row count
-// (int32), and per aggregate count_sum (int32), sum (int64, exact, two's
-// complement through 64-bit atomics — no row-count bound), min / max (int32,
-// empty slots keep INT_MAX / INT_MIN).  A valid key at or beyond m + cap sets
-// *overflow and is dropped.  Count aggregates are the row count itself, so
-// the wrapper aliases them and the kernel never sees them.
+// Contract.  Slot i holds key m + i, m = min(valid keys) (INT_MAX when no
+// row is valid).  Per slot: the row count (int32), and per aggregate
+// count_sum (int32), sum (int64, exact, two's complement through 64-bit
+// atomics — no row-count bound), min / max (int32, empty slots keep INT_MAX
+// / INT_MIN).  A valid key at or beyond m + cap sets the overflow flag and is
+// dropped.  The kernel also writes the slot keys, out_valid = count > 0 and a
+// flag "some slot counted more than one row" (duplicate build keys).  Count
+// aggregates are the row count itself, so the wrapper aliases them and the
+// kernel never sees them.
 //
 // What bounds it on this card.  Bytes: every row reads its key (4 B), its
-// valid flag (1 B) and each aggregated column (4 B) once, every slot is
-// written once — a few MB per q4 window, microseconds at 3.35 TB/s.  What
-// actually limits it is atomic throughput on hot addresses: q4's
-// per-category pass folds ~250 k rows onto 5 live keys, and global atomics
-// on 5 addresses serialise in L2.
+// valid flag (1 B) and each aggregated column (4 B), every slot is written
+// once — 8 MB for q4's build slotting (2.4 us at 3.35 TB/s), 2.2 MB for its
+// per-category pass.  The first version was held back by two other things:
+// its wrapper issued ~13 device operations around its one launch (m, the
+// output fills, the slot keys, count > 0, the flag), each a launch the card
+// waits for; and the per-category pass folds ~250 k rows onto 5 live keys,
+// one shared-memory atomic per row and aggregate on 5 addresses.
 //
-// Design.  The TPU kernel factored the slot index into hi (x) lo one-hot
-// matmuls because a TPU has no fast scatter.  Hopper has native 32- and
-// 64-bit atomics in shared and global memory, so K2 is a scatter:
-//   * when the accumulators for all `cap` slots fit one block's static
-//     shared memory (48 KB — q4's 128-slot per-category aggregate takes
-//     1.5 KB), each block accumulates privately in shared memory over a
-//     grid-stride slice of the rows and then flushes every touched slot
-//     with one global atomic per aggregate;
-//   * otherwise rows go straight to global atomics.  Build slotting (q4's
-//     ~250 k-slot auction table) has ascending, unique keys, so there is
-//     almost no contention there.
+// Design.  One cooperative launch (cooperative_groups grid sync; the grid is
+// sized to be resident) does everything the wrapper did:
+//   (a) each block reduces min(valid keys) over its share of the rows into a
+//       per-block partial (no scalar that would need initialising before an
+//       atomic), and initialises the outputs and its shared accumulators;
+//   grid sync — every block reduces the partials to m itself and writes the
+//   slot keys;
+//   (b) accumulation: rows in quads through 16-byte loads; the lanes of a
+//       warp on one slot add their count with one atomic, and when the warp
+//       holds at most kFewSlots slots (hot keys) they combine every value
+//       first (warp_agg.cuh); atomics go into block-private shared memory
+//       when every slot fits 48 KB (q4's
+//       128-slot per-category pass: 1.5 KB; flushed once per touched slot),
+//       else straight into device memory (build slotting: ascending unique
+//       keys, almost no contention);
+//   grid sync — (c) the epilogue writes out_valid and the duplicate flag.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
 
+#include "warp_agg.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
+
+using namespace flock;
 
 constexpr int kMaxAggs = 8;
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBlocksPerSm = 4;
 constexpr int64_t kSharedLimit = 48 * 1024;
-
-enum Fn : int32_t { kCountSum = 1, kSum = 2, kMin = 3, kMax = 4 };
+// a warp whose live lanes hold at most this many slots combines each slot's
+// lanes before its atomics (q4's per-category pass: 5); measured on the H100
+// against 4, 16 and 32 (PERF.md, PR 3)
+constexpr int kFewSlots = 8;
 
 struct Params {
   const int32_t* keys;
   const uint8_t* valid;
-  const int32_t* m;
   int64_t n;
   int32_t cap;
   int32_t naggs;
+  bool vec;  // keys and columns 16-byte aligned, valid 4-byte aligned
   int32_t fn[kMaxAggs];
   const int32_t* col[kMaxAggs];
   void* out[kMaxAggs];
   int32_t smem_off[kMaxAggs];  // byte offset of each block-private accumulator
   int32_t smem_cnt_off;
   int32_t* cnt;
-  int32_t* overflow;
+  int32_t* key_out;
+  uint8_t* valid_out;
+  uint8_t* overflow;
+  uint8_t* dups;
+  int32_t* partial;  // [gridDim.x] per-block minima
 };
 
-using ull = unsigned long long;
+template <bool kShared>
+__device__ __forceinline__ void dense_agg_body(const Params& p) {
+  extern __shared__ __align__(8) unsigned char smem[];
+  __shared__ int32_t red[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t tid = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
+  const int64_t nthreads = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int64_t nq = (p.n + 3) / 4;
 
-__device__ __forceinline__ void accumulate(int32_t fn, void* acc, int64_t s,
-                                           int32_t v) {
-  switch (fn) {
-    case kCountSum: atomicAdd(static_cast<int*>(acc) + s, v); break;
-    case kSum:
-      atomicAdd(static_cast<ull*>(acc) + s, static_cast<ull>(static_cast<long long>(v)));
-      break;
-    case kMin: atomicMin(static_cast<int*>(acc) + s, v); break;
-    case kMax: atomicMax(static_cast<int*>(acc) + s, v); break;
+  // (a) this block's minimum, and every output at its identity
+  int32_t lo = INT_MAX;
+  for (int64_t q = tid; q < nq; q += nthreads) {
+    int32_t k[4];
+    bool v[4];
+    load_quad(p.keys, 4 * q, p.n, p.vec, k);
+    load_quad(p.valid, 4 * q, p.n, p.vec, v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (v[e]) lo = min(lo, k[e]);
   }
-}
-
-// The row's slot, or -1 when it contributes nothing (invalid, or beyond the
-// capacity — which raises the overflow flag).
-__device__ __forceinline__ int64_t slot_of(const Params& p, int32_t m, int64_t i) {
-  if (!p.valid[i]) return -1;
-  const int64_t s = static_cast<int64_t>(p.keys[i]) - m;
-  if (s < 0 || s >= p.cap) {
-    *p.overflow = 1;
-    return -1;
+  lo = __reduce_min_sync(kFull, lo);
+  if (lane == 0) red[warp] = lo;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kWarps; ++w) lo = min(lo, red[w]);
+    p.partial[blockIdx.x] = lo;
   }
-  return s;
-}
+  for (int64_t i = tid; i < p.cap; i += nthreads) {
+    p.cnt[i] = 0;
+    for (int a = 0; a < p.naggs; ++a) init_slot(p.fn[a], p.out[a], i);
+  }
+  if (tid == 0) *p.overflow = *p.dups = 0;
+  int* cnt = p.cnt;
+  if (kShared) {
+    cnt = reinterpret_cast<int*>(smem + p.smem_cnt_off);
+    for (int s = threadIdx.x; s < p.cap; s += kThreads) {
+      cnt[s] = 0;
+      for (int a = 0; a < p.naggs; ++a) init_slot(p.fn[a], smem + p.smem_off[a], s);
+    }
+  }
+  cg::this_grid().sync();
 
-__global__ void __launch_bounds__(kThreads)
-dense_agg_global(const __grid_constant__ Params p) {
-  const int32_t m = *p.m;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       i < p.n; i += stride) {
-    const int64_t s = slot_of(p, m, i);
-    if (s < 0) continue;
-    atomicAdd(p.cnt + s, 1);
-    for (int a = 0; a < p.naggs; ++a) accumulate(p.fn[a], p.out[a], s, p.col[a][i]);
+  // m from the partials, in every block
+  if (warp == 0) {
+    int32_t m = INT_MAX;
+    for (int b = lane; b < gridDim.x; b += 32) m = min(m, __ldcg(p.partial + b));
+    m = __reduce_min_sync(kFull, m);
+    if (lane == 0) red[0] = m;
+  }
+  __syncthreads();
+  const int32_t m = red[0];
+  for (int64_t i = tid; i < p.cap; i += nthreads) p.key_out[i] = slot_key(m, i);
+
+  // (b) a warp takes 32 consecutive quads (128 rows) per step
+  for (int64_t q0 = (tid >> 5) * 32; q0 < nq; q0 += nthreads) {
+    const int64_t row = 4 * (q0 + lane);
+    int32_t k[4], val[kMaxAggs][4];
+    bool v[4];
+    load_quad(p.keys, row, p.n, p.vec, k);
+    load_quad(p.valid, row, p.n, p.vec, v);
+#pragma unroll
+    for (int a = 0; a < kMaxAggs; ++a)
+      if (a < p.naggs) load_quad(p.col[a], row, p.n, p.vec, val[a]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      int32_t slot = -1;
+      if (v[e]) {
+        const int64_t s = static_cast<int64_t>(k[e]) - m;
+        if (s < p.cap) slot = static_cast<int32_t>(s);
+        else *p.overflow = 1;
+      }
+      // the lanes on one slot: the leader adds their count; when the warp
+      // holds few slots, each group combines its values and its leader
+      // makes the atomic, else every lane makes its own (warp_agg.cuh)
+      const unsigned peers = __match_any_sync(kFull, slot);
+      const bool leader = slot >= 0 && lane == __ffs(peers) - 1;
+      const bool few = __popc(__ballot_sync(kFull, leader)) <= kFewSlots;
+      if (leader) atomicAdd(cnt + slot, __popc(peers));
+      if (slot < 0) continue;
+#pragma unroll
+      for (int a = 0; a < kMaxAggs; ++a) {
+        if (a >= p.naggs) break;
+        void* acc = kShared ? smem + p.smem_off[a] : p.out[a];
+        if (few) {
+          const long long t = group_combine(p.fn[a], peers, val[a][e]);
+          if (leader) apply<kShared>(p.fn[a], acc, slot, t);
+        } else {
+          apply<kShared>(p.fn[a], acc, slot, val[a][e]);
+        }
+      }
+    }
+  }
+  if (kShared) {
+    __syncthreads();
+    for (int s = threadIdx.x; s < p.cap; s += kThreads) {
+      const int c = cnt[s];
+      if (c == 0) continue;
+      atomicAdd(p.cnt + s, c);
+      for (int a = 0; a < p.naggs; ++a) flush_slot(p.fn[a], smem + p.smem_off[a], s, p.out[a], s);
+    }
+  }
+  cg::this_grid().sync();
+
+  // (c) epilogue
+  for (int64_t i = tid; i < p.cap; i += nthreads) {
+    const int c = __ldcg(p.cnt + i);
+    p.valid_out[i] = c > 0;
+    if (c > 1) *p.dups = 1;
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
 dense_agg_shared(const __grid_constant__ Params p) {
-  extern __shared__ __align__(8) unsigned char smem[];
-  int* scnt = reinterpret_cast<int*>(smem + p.smem_cnt_off);
-  for (int s = threadIdx.x; s < p.cap; s += blockDim.x) {
-    scnt[s] = 0;
-    for (int a = 0; a < p.naggs; ++a) {
-      unsigned char* acc = smem + p.smem_off[a];
-      switch (p.fn[a]) {
-        case kSum: reinterpret_cast<long long*>(acc)[s] = 0; break;
-        case kMin: reinterpret_cast<int*>(acc)[s] = INT_MAX; break;
-        case kMax: reinterpret_cast<int*>(acc)[s] = INT_MIN; break;
-        default: reinterpret_cast<int*>(acc)[s] = 0; break;
-      }
-    }
-  }
-  __syncthreads();
+  dense_agg_body<true>(p);
+}
 
-  const int32_t m = *p.m;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       i < p.n; i += stride) {
-    const int64_t s = slot_of(p, m, i);
-    if (s < 0) continue;
-    atomicAdd(scnt + s, 1);
-    for (int a = 0; a < p.naggs; ++a)
-      accumulate(p.fn[a], smem + p.smem_off[a], s, p.col[a][i]);
-  }
-  __syncthreads();
-
-  // flush: one global atomic per touched slot and aggregate
-  for (int s = threadIdx.x; s < p.cap; s += blockDim.x) {
-    const int c = scnt[s];
-    if (c == 0) continue;
-    atomicAdd(p.cnt + s, c);
-    for (int a = 0; a < p.naggs; ++a) {
-      const unsigned char* acc = smem + p.smem_off[a];
-      switch (p.fn[a]) {
-        case kCountSum:
-          atomicAdd(static_cast<int*>(p.out[a]) + s, reinterpret_cast<const int*>(acc)[s]);
-          break;
-        case kSum:
-          atomicAdd(static_cast<ull*>(p.out[a]) + s,
-                    static_cast<ull>(reinterpret_cast<const long long*>(acc)[s]));
-          break;
-        case kMin:
-          atomicMin(static_cast<int*>(p.out[a]) + s, reinterpret_cast<const int*>(acc)[s]);
-          break;
-        case kMax:
-          atomicMax(static_cast<int*>(p.out[a]) + s, reinterpret_cast<const int*>(acc)[s]);
-          break;
-      }
-    }
-  }
+__global__ void __launch_bounds__(kThreads)
+dense_agg_global(const __grid_constant__ Params p) {
+  dense_agg_body<false>(p);
 }
 
 }  // namespace
 
-// Launches K2 on `stream`.  `fns`, `cols` and `outs` are host arrays of
-// `naggs` entries (aggregate codes, column pointers, output pointers).  The
-// outputs must be initialised by the caller (0, INT_MAX for min, INT_MIN for
-// max); `cnt` is int32[cap] zeros and `overflow` one int32 zero.
+// Launches K2 on `stream`: one cooperative launch that initialises and
+// writes every output.  `aggs` packs `naggs` triples (aggregate code, column
+// pointer, output pointer); `cnt`, `key_out` are int32[cap], `valid_out`
+// bool[cap], `flags` bool[2] (overflow, duplicates); `scratch` holds
+// `scratch_len` int32 for the per-block minima and bounds the grid.
 extern "C" int flock_dense_agg(const int32_t* keys, const uint8_t* valid,
-                               int64_t n, const int32_t* m, int32_t cap,
-                               int32_t naggs, const int32_t* fns,
-                               const int64_t* cols, const int64_t* outs,
-                               int32_t* cnt, int32_t* overflow, void* stream) {
-  if (naggs < 0 || naggs > kMaxAggs || cap <= 0 || n <= 0)
+                               int64_t n, int32_t cap, int32_t naggs,
+                               const int64_t* aggs, int32_t* cnt,
+                               int32_t* key_out, uint8_t* valid_out,
+                               uint8_t* flags, int32_t* scratch,
+                               int32_t scratch_len, void* stream) {
+  if (naggs < 0 || naggs > kMaxAggs || cap <= 0 || n < 0 || scratch_len <= 0)
     return cudaErrorInvalidValue;
   Params p{};
   p.keys = keys;
   p.valid = valid;
-  p.m = m;
   p.n = n;
   p.cap = cap;
   p.naggs = naggs;
   p.cnt = cnt;
-  p.overflow = overflow;
+  p.key_out = key_out;
+  p.valid_out = valid_out;
+  p.overflow = flags;
+  p.dups = flags + 1;
+  p.partial = scratch;
+  p.vec = aligned(keys, 16) && aligned(valid, 4);
   // shared layout: int64 accumulators first (8-byte aligned), then the row
   // counts, then the int32 accumulators
   int64_t off[kMaxAggs] = {};
   int64_t bytes = 0;
   for (int a = 0; a < naggs; ++a) {
-    if (fns[a] < kCountSum || fns[a] > kMax) return cudaErrorInvalidValue;
-    p.fn[a] = fns[a];
-    p.col[a] = reinterpret_cast<const int32_t*>(cols[a]);
-    p.out[a] = reinterpret_cast<void*>(outs[a]);
-    if (fns[a] == kSum) { off[a] = bytes; bytes += 8LL * cap; }
+    const int32_t fn = static_cast<int32_t>(aggs[3 * a]);
+    if (fn < kCountSum || fn > kMax) return cudaErrorInvalidValue;
+    p.fn[a] = fn;
+    p.col[a] = reinterpret_cast<const int32_t*>(aggs[3 * a + 1]);
+    p.out[a] = reinterpret_cast<void*>(aggs[3 * a + 2]);
+    p.vec = p.vec && aligned(p.col[a], 16);
+    if (fn == kSum) { off[a] = bytes; bytes += 8LL * cap; }
   }
   const int64_t cnt_off = bytes;
   bytes += 4LL * cap;
   for (int a = 0; a < naggs; ++a)
-    if (fns[a] != kSum) { off[a] = bytes; bytes += 4LL * cap; }
+    if (p.fn[a] != kSum) { off[a] = bytes; bytes += 4LL * cap; }
 
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int64_t want = (n + kThreads - 1) / kThreads;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bytes <= kSharedLimit) {
+  const bool shared = bytes <= kSharedLimit;
+  const void* kernel = shared ? reinterpret_cast<const void*>(dense_agg_shared)
+                              : reinterpret_cast<const void*>(dense_agg_global);
+  const size_t smem = shared ? static_cast<size_t>(bytes) : 0;
+  static const cudaError_t opted = allow_all_shared(
+      reinterpret_cast<const void*>(dense_agg_shared));
+  if (opted != cudaSuccess) return static_cast<int>(opted);
+  if (shared) {
     for (int a = 0; a < naggs; ++a) p.smem_off[a] = static_cast<int32_t>(off[a]);
     p.smem_cnt_off = static_cast<int32_t>(cnt_off);
-    // a few blocks per SM: each block flushes its touched slots once
-    const int blocks = static_cast<int>(want < 4LL * sms ? want : 4LL * sms);
-    dense_agg_shared<<<blocks, kThreads, static_cast<size_t>(bytes), st>>>(p);
-  } else {
-    const int blocks = static_cast<int>(want < 32LL * sms ? want : 32LL * sms);
-    dense_agg_global<<<blocks, kThreads, 0, st>>>(p);
   }
-  return static_cast<int>(cudaGetLastError());
+  // enough blocks for one quad of rows or one slot per thread, no more than
+  // are resident at once, and no more than the scratch holds
+  const int64_t work = (n + 3) / 4 > cap ? (n + 3) / 4 : cap;
+  int64_t blocks = (work + kThreads - 1) / kThreads;
+  const int resident = resident_blocks(kernel, kThreads, smem, kBlocksPerSm);
+  if (resident <= 0) return cudaErrorInvalidConfiguration;
+  if (blocks > resident) blocks = resident;
+  if (blocks > scratch_len) blocks = scratch_len;
+  void* args[] = {&p};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      kernel, dim3(static_cast<unsigned>(blocks)), dim3(kThreads), args, smem,
+      static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 extern "C" const char* flock_error_string(int code) {

@@ -5,7 +5,8 @@
 // _kernel :55-170, pallas_call :348; int64 rebasing in
 // fused_join_aggregate_rebased :250-294, done by the Python wrapper here).
 // Its contract is also that of the XLA formulation
-// ops/blocked.py blocked_join_aggregate, which q4's fused pass ran on the TPU.
+// ops/blocked.py blocked_join_aggregate, which q4's fused pass ran on the TPU,
+// and of pallas/factored.py pallas_factored_join_agg / pallas_bcast_join_agg.
 //
 // Contract.  The build side arrives slot-dense: slot i holds key m + i
 // (m a device scalar), `present[i]` says whether a build row landed there,
@@ -15,41 +16,78 @@
 // passing pairs accumulate into the slot: the pair count (int32), and per
 // aggregate count_sum (int32), sum (int64 through 64-bit atomics), min / max
 // (int32, empty slots keep INT_MAX / INT_MIN).  Aggregated and compared
-// columns come from either side.  Joined rows are never built.
+// columns come from either side.  Joined rows are never built.  The kernel
+// initialises every output itself and writes the slot keys and
+// out_valid = count > 0.
 //
 // What bounds it on this card.  Bytes: each probe row is read once (q4: key,
 // valid flag, price, b_date_time = 13 B), the slot columns once (13 B a
-// slot), the outputs written once — ~55 MB for a 3.7 M-bid q4 window,
-// ~16 us at 3.35 TB/s.  The gathers hit a ~3 MB slot table that stays in
-// the 50 MB L2.  The atomics are the likely limit: bids cluster on hot
-// auctions (hot_auction_ratio: half the bids go to one id per 100), so
-// neighbouring threads of a warp add to the same count slot.
+// slot), the outputs written once — ~54 MB for a 3.68 M-bid q4 window,
+// 0.0162 ms at 3.35 TB/s.  The gathers hit a ~3 MB slot table that stays in
+// the 50 MB L2.  The first version (one thread per probe row, global atomics)
+// took 6.9x that: bids cluster on hot auctions (half the bids go to one id
+// per 100), so neighbouring lanes added to the same count word in L2.
 //
-// Design (first version).  The TPU kernel built [block, 2·s_loc] one-hot
-// pair masks because it could neither gather nor scatter per row; Hopper
-// does both.  One thread per probe row in a grid-stride loop: direct-index
-// gather of the slot columns, the predicate evaluated in registers, global
-// atomics into the span outputs.  min / max read the slot first (through
-// L2) and skip the atomic when the value cannot win, which removes most of
-// the atomics for max(price) on hot auctions.  There is no locality escape:
-// any key anywhere in the span is handled.  Block-private shared-memory
-// accumulators over each block's narrow key window (the bid→auction window
-// is ~512 ids, ops/kernels.py S_LOC_AUCTION_OVER_BID in the reference) are
-// left to a later version.
+// Design.  One cooperative launch: (a) every output at its identity and the
+// slot keys; grid sync; (b) blocks walk tiles of kTile = 1024 consecutive
+// probe rows in a persistent loop; grid sync; (c) out_valid.  Per tile:
+//   * loads — each thread takes one quad of rows: 16-byte evict-first
+//     vector loads of the key and of up to kMaxProbe probe columns into
+//     registers, the valid flags as 4 bytes, all issued before any is used.  Vector loads rather
+//     than a TMA / cp.async ring: every probe byte is used once, by the
+//     thread that loads it, so a shared-memory stage would add a copy and a
+//     barrier and buy no reuse.  Tiles of 2048 rows (two quads a thread)
+//     measured 1.2x slower on the H100 (PERF.md, PR 3);
+//   * the window — a block reduction finds the tile's live slot range
+//     [lo, hi]; the window is the kWindow = 2048 slots ending at hi (the
+//     auction frontier, with the lookback behind it), cut to start no lower
+//     than lo.  The reference bounds the auction ids of a block of bids by
+//     S_LOC_AUCTION_OVER_BID = 512 (flock_tpu/ops/kernels.py:162-165), so
+//     almost every pair lands in it;
+//   * pairs — `present` and the predicate's slot columns are gathered term
+//     by term, every row's gathers in flight together;
+//   * accumulation — a pair in the window makes shared-memory atomics on
+//     block-private accumulators (min / max read first and skip the atomic
+//     when they cannot win); any other pair makes global atomics, so
+//     correctness never depends on locality and nothing escapes.  The lanes
+//     are not combined first: shared-memory atomics resolve lanes on one
+//     address in hardware for less than the grouping costs (warp_agg.cuh);
+//   * flush — every touched window slot goes out with one global atomic per
+//     output, and back to its identity for the next tile.
+// Aggregates of a slot column (q4's category carry) take no atomic at all:
+// every pair on slot i carries col[i], so the epilogue writes them from
+// col[i] and the pair count.
+// What is left on the device: a global atomic per touched slot per tile
+// (~1 per 6 bids at q4's frontier), the dependent gathers of `present` and
+// the slot columns, and the two grid syncs.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
+#include "warp_agg.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
+
+using namespace flock;
 
 constexpr int kMaxCols = 16;
 constexpr int kMaxTerms = 8;
 constexpr int kMaxAggs = 8;
+constexpr int kMaxProbe = 4;           // probe columns held in registers
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kQuads = 1;              // quads of rows per thread and tile
+constexpr int kRows = 4 * kQuads;
+constexpr int kTile = kThreads * kRows;  // 1024 probe rows
+constexpr int kWindow = 2048;          // slots accumulated in shared memory
+constexpr int kBlocksPerSm = 4;
 
 enum Op : int32_t { kLt = 0, kLe = 1, kGt = 2, kGe = 3, kEq = 4, kNe = 5 };
-enum Fn : int32_t { kCountSum = 1, kSum = 2, kMin = 3, kMax = 4 };
 
 struct Params {
   const int32_t* key;
@@ -57,26 +95,44 @@ struct Params {
   int64_t n;
   const uint8_t* present;
   const int32_t* m;
-  int64_t span;
+  int32_t span;
+  bool vec;  // key and probe columns 16-byte aligned, valid 4-byte aligned
   int32_t ncols;
   const int32_t* col[kMaxCols];
-  int32_t col_slot[kMaxCols];  // 1: slot column [span]; 0: probe column [n]
+  int32_t col_slot[kMaxCols];   // 1: slot column [span]; 0: probe column [n]
+  int32_t col_probe[kMaxCols];  // a probe column's register index
+  int32_t nprobe;
+  const int32_t* probe[kMaxProbe];
   int32_t nterms;
   int32_t lhs[kMaxTerms];
   int32_t op[kMaxTerms];
   int32_t rhs[kMaxTerms];
-  int32_t naggs;
+  int32_t naggs;  // aggregates of probe columns, accumulated pair by pair
   int32_t fn[kMaxAggs];
   int32_t acol[kMaxAggs];
   void* out[kMaxAggs];
+  int32_t smem_off[kMaxAggs];  // byte offset of each window accumulator
+  int32_t nslot;  // aggregates of slot columns, written from the count
+  int32_t sfn[kMaxAggs];
+  const int32_t* scol[kMaxAggs];
+  void* sout[kMaxAggs];
+  int32_t smem_cnt_off;
   int32_t* cnt;
+  int32_t* key_out;
+  uint8_t* valid_out;
 };
 
-using ull = unsigned long long;
-
-__device__ __forceinline__ int32_t value(const Params& p, int c, int64_t row,
-                                         int64_t slot) {
-  return p.col[c][p.col_slot[c] ? slot : row];
+// Column c at this thread's row r of the tile (slot s for a slot column).
+__device__ __forceinline__ int32_t value(const Params& p, int c, int32_t s,
+                                         const int32_t (&pv)[kMaxProbe][kRows],
+                                         int r) {
+  if (p.col_slot[c]) return __ldg(p.col[c] + s);
+  const int k = p.col_probe[c];
+  int32_t v = pv[0][r];
+#pragma unroll
+  for (int j = 1; j < kMaxProbe; ++j)
+    if (k == j) v = pv[j][r];
+  return v;
 }
 
 __device__ __forceinline__ bool compare(int32_t op, int32_t a, int32_t b) {
@@ -92,36 +148,134 @@ __device__ __forceinline__ bool compare(int32_t op, int32_t a, int32_t b) {
 
 __global__ void __launch_bounds__(kThreads)
 join_agg_kernel(const __grid_constant__ Params p) {
-  const int32_t m = *p.m;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       i < p.n; i += stride) {
-    if (!p.valid[i]) continue;
-    const int64_t s = static_cast<int64_t>(p.key[i]) - m;
-    if (s < 0 || s >= p.span || !p.present[s]) continue;
-    bool pass = true;
-    for (int t = 0; t < p.nterms && pass; ++t)
-      pass = compare(p.op[t], value(p, p.lhs[t], i, s), value(p, p.rhs[t], i, s));
-    if (!pass) continue;
-    atomicAdd(p.cnt + s, 1);
-    for (int a = 0; a < p.naggs; ++a) {
-      const int32_t v = value(p, p.acol[a], i, s);
-      switch (p.fn[a]) {
-        case kCountSum: atomicAdd(static_cast<int*>(p.out[a]) + s, v); break;
-        case kSum:
-          atomicAdd(static_cast<ull*>(p.out[a]) + s,
-                    static_cast<ull>(static_cast<long long>(v)));
-          break;
-        case kMin: {
-          int* o = static_cast<int*>(p.out[a]) + s;
-          if (v < __ldcg(o)) atomicMin(o, v);  // values only fall: a stale
-          break;                               // read can only cost an atomic
+  extern __shared__ __align__(8) unsigned char smem[];
+  __shared__ int32_t red_lo[kWarps], red_hi[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t tid = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
+  const int64_t nthreads = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int32_t m = __ldg(p.m);
+  int* scnt = reinterpret_cast<int*>(smem + p.smem_cnt_off);
+
+  // (a) outputs and the window at their identities, slot keys
+  for (int64_t i = tid; i < p.span; i += nthreads) {
+    p.cnt[i] = 0;
+    p.key_out[i] = slot_key(m, i);
+    for (int a = 0; a < p.naggs; ++a) init_slot(p.fn[a], p.out[a], i);
+  }
+  for (int k = threadIdx.x; k < kWindow; k += kThreads) {
+    scnt[k] = 0;
+    for (int a = 0; a < p.naggs; ++a) init_slot(p.fn[a], smem + p.smem_off[a], k);
+  }
+  cg::this_grid().sync();
+
+  // (b) tiles
+  const int64_t ntiles = (p.n + kTile - 1) / kTile;
+  for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    int32_t s[kRows], pv[kMaxProbe][kRows];
+    int32_t lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+    for (int j = 0; j < kQuads; ++j) {
+      const int64_t row = tile * kTile + 4 * (j * static_cast<int64_t>(kThreads) + threadIdx.x);
+      int32_t k4[4];
+      bool v4[4];
+      load_quad<true>(p.key, row, p.n, p.vec, k4);
+      load_quad(p.valid, row, p.n, p.vec, v4);
+#pragma unroll
+      for (int c = 0; c < kMaxProbe; ++c) {
+        int32_t t4[4] = {0, 0, 0, 0};
+        if (c < p.nprobe) load_quad<true>(p.probe[c], row, p.n, p.vec, t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pv[c][4 * j + e] = t4[e];
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int64_t rel = static_cast<int64_t>(k4[e]) - m;
+        const bool live = v4[e] && rel >= 0 && rel < p.span;
+        s[4 * j + e] = live ? static_cast<int32_t>(rel) : -1;
+        if (live) {
+          lo = min(lo, s[4 * j + e]);
+          hi = max(hi, s[4 * j + e]);
         }
-        case kMax: {
-          int* o = static_cast<int*>(p.out[a]) + s;
-          if (v > __ldcg(o)) atomicMax(o, v);
-          break;
+      }
+    }
+    lo = __reduce_min_sync(kFull, lo);
+    hi = __reduce_max_sync(kFull, hi);
+    if (lane == 0) {
+      red_lo[warp] = lo;
+      red_hi[warp] = hi;
+    }
+    __syncthreads();
+    for (int w = 0; w < kWarps; ++w) {
+      lo = min(lo, red_lo[w]);
+      hi = max(hi, red_hi[w]);
+    }
+    if (hi >= 0) {  // the tile has live rows (block-uniform)
+      const int32_t wbase = max(lo, hi - kWindow + 1);
+      // pairs: a present slot and the predicate, term by term so that the
+      // gathers of all rows are in flight together
+      bool pair[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) pair[r] = s[r] >= 0 && __ldg(p.present + s[r]);
+      for (int t = 0; t < p.nterms; ++t) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          if (pair[r])
+            pair[r] = compare(p.op[t], value(p, p.lhs[t], s[r], pv, r),
+                              value(p, p.rhs[t], s[r], pv, r));
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (!pair[r]) continue;
+        const int32_t slot = s[r];
+        int32_t av[kMaxAggs];  // gathered before the atomics
+#pragma unroll
+        for (int a = 0; a < kMaxAggs; ++a)
+          av[a] = a < p.naggs ? value(p, p.acol[a], slot, pv, r) : 0;
+        // a slot in the window (k = slot - wbase >= 0; k < kWindow since
+        // slot <= hi) goes to shared memory, any other to device memory
+        const int32_t k = slot - wbase;
+        if (k >= 0) atomicAdd(scnt + k, 1);
+        else atomicAdd(p.cnt + slot, 1);
+#pragma unroll
+        for (int a = 0; a < kMaxAggs; ++a) {
+          if (a >= p.naggs) break;
+          if (k >= 0) apply<true>(p.fn[a], smem + p.smem_off[a], k, av[a]);
+          else apply<false>(p.fn[a], p.out[a], slot, av[a]);
         }
+      }
+      __syncthreads();
+      // flush the window's touched slots, back to their identities
+      for (int k = threadIdx.x; k <= hi - wbase; k += kThreads) {
+        const int c = scnt[k];
+        if (c == 0) continue;
+        const int64_t slot = wbase + k;
+        atomicAdd(p.cnt + slot, c);
+        scnt[k] = 0;
+        for (int a = 0; a < p.naggs; ++a)
+          flush_slot(p.fn[a], smem + p.smem_off[a], k, p.out[a], slot);
+      }
+    }
+    __syncthreads();
+  }
+  cg::this_grid().sync();
+
+  // (c) epilogue: validity, and every aggregate of a slot column — all its
+  // pairs on slot i carry col[i], so it is a function of col[i] and the
+  // count c: min / max col[i] (identity when c = 0), sum col[i]·c in int64,
+  // count_sum col[i]·c wrapped to int32 as repeated int32 addition wraps
+  for (int64_t i = tid; i < p.span; i += nthreads) {
+    const int c = __ldcg(p.cnt + i);
+    p.valid_out[i] = c > 0;
+    for (int b = 0; b < p.nslot; ++b) {
+      const int32_t v = __ldg(p.scol[b] + i);
+      switch (p.sfn[b]) {
+        case kCountSum:
+          static_cast<int*>(p.sout[b])[i] = static_cast<int32_t>(
+              static_cast<uint32_t>(v) * static_cast<uint32_t>(c));
+          break;
+        case kSum: static_cast<long long*>(p.sout[b])[i] = static_cast<long long>(v) * c; break;
+        case kMin: static_cast<int*>(p.sout[b])[i] = c > 0 ? v : INT_MAX; break;
+        case kMax: static_cast<int*>(p.sout[b])[i] = c > 0 ? v : INT_MIN; break;
       }
     }
   }
@@ -129,21 +283,20 @@ join_agg_kernel(const __grid_constant__ Params p) {
 
 }  // namespace
 
-// Launches K1 on `stream`.  Host arrays: `cols`/`col_slot` (ncols column
-// pointers and their side), `terms` (nterms triples lhs, op, rhs of column
-// indices and an Op code), `fns`/`acols`/`outs` (naggs aggregate codes,
-// column indices and output pointers).  Outputs are initialised by the
-// caller (0, INT_MAX for min, INT_MIN for max; `cnt` int32[span] zeros).
+// Launches K1 on `stream`: one cooperative launch that initialises and
+// writes every output.  `args` packs, as int64: `ncols` column pointers,
+// their sides (1 slot, 0 probe), `nterms` triples (lhs column, Op, rhs
+// column), `naggs` pairs (aggregate code, column), `naggs` output pointers.
+// `cnt` and `key_out` are int32[span], `valid_out` bool[span].
 extern "C" int flock_join_agg(const int32_t* key, const uint8_t* valid,
                               int64_t n, const uint8_t* present,
                               const int32_t* m, int64_t span, int32_t ncols,
-                              const int64_t* cols, const int32_t* col_slot,
-                              int32_t nterms, const int32_t* terms,
-                              int32_t naggs, const int32_t* fns,
-                              const int32_t* acols, const int64_t* outs,
-                              int32_t* cnt, void* stream) {
-  if (n <= 0 || span <= 0 || ncols < 0 || ncols > kMaxCols || nterms < 0 ||
-      nterms > kMaxTerms || naggs < 0 || naggs > kMaxAggs)
+                              int32_t nterms, int32_t naggs,
+                              const int64_t* args, int32_t* cnt,
+                              int32_t* key_out, uint8_t* valid_out,
+                              void* stream) {
+  if (n < 0 || span <= 0 || span > INT_MAX || ncols < 0 || ncols > kMaxCols ||
+      nterms < 0 || nterms > kMaxTerms || naggs < 0 || naggs > kMaxAggs)
     return cudaErrorInvalidValue;
   Params p{};
   p.key = key;
@@ -151,38 +304,77 @@ extern "C" int flock_join_agg(const int32_t* key, const uint8_t* valid,
   p.n = n;
   p.present = present;
   p.m = m;
-  p.span = span;
+  p.span = static_cast<int32_t>(span);
+  p.vec = aligned(key, 16) && aligned(valid, 4);
   p.ncols = ncols;
+  const int64_t* sides = args + ncols;
   for (int c = 0; c < ncols; ++c) {
-    p.col[c] = reinterpret_cast<const int32_t*>(cols[c]);
-    p.col_slot[c] = col_slot[c];
+    p.col[c] = reinterpret_cast<const int32_t*>(args[c]);
+    p.col_slot[c] = static_cast<int32_t>(sides[c]);
+    if (!p.col_slot[c]) {
+      if (p.nprobe == kMaxProbe) return cudaErrorInvalidValue;
+      p.col_probe[c] = p.nprobe;
+      p.probe[p.nprobe++] = p.col[c];
+      p.vec = p.vec && aligned(p.col[c], 16);
+    }
   }
+  const int64_t* terms = sides + ncols;
   p.nterms = nterms;
   for (int t = 0; t < nterms; ++t) {
-    p.lhs[t] = terms[3 * t];
-    p.op[t] = terms[3 * t + 1];
-    p.rhs[t] = terms[3 * t + 2];
+    p.lhs[t] = static_cast<int32_t>(terms[3 * t]);
+    p.op[t] = static_cast<int32_t>(terms[3 * t + 1]);
+    p.rhs[t] = static_cast<int32_t>(terms[3 * t + 2]);
     if (p.lhs[t] < 0 || p.lhs[t] >= ncols || p.rhs[t] < 0 ||
         p.rhs[t] >= ncols || p.op[t] < kLt || p.op[t] > kNe)
       return cudaErrorInvalidValue;
   }
-  p.naggs = naggs;
+  const int64_t* fns = terms + 3 * nterms;
+  const int64_t* outs = fns + 2 * naggs;
+  // window layout: int64 accumulators first (8-byte aligned), then the pair
+  // counts, then the int32 accumulators
+  int64_t bytes = 0;
   for (int a = 0; a < naggs; ++a) {
-    p.fn[a] = fns[a];
-    p.acol[a] = acols[a];
-    p.out[a] = reinterpret_cast<void*>(outs[a]);
-    if (fns[a] < kCountSum || fns[a] > kMax || acols[a] < 0 || acols[a] >= ncols)
+    const int32_t fn = static_cast<int32_t>(fns[2 * a]);
+    const int32_t c = static_cast<int32_t>(fns[2 * a + 1]);
+    if (fn < kCountSum || fn > kMax || c < 0 || c >= ncols)
       return cudaErrorInvalidValue;
+    if (p.col_slot[c]) {
+      p.sfn[p.nslot] = fn;
+      p.scol[p.nslot] = p.col[c];
+      p.sout[p.nslot++] = reinterpret_cast<void*>(outs[a]);
+      continue;
+    }
+    const int b = p.naggs++;
+    p.fn[b] = fn;
+    p.acol[b] = c;
+    p.out[b] = reinterpret_cast<void*>(outs[a]);
+    if (fn == kSum) { p.smem_off[b] = static_cast<int32_t>(bytes); bytes += 8LL * kWindow; }
   }
+  p.smem_cnt_off = static_cast<int32_t>(bytes);
+  bytes += 4LL * kWindow;
+  for (int a = 0; a < p.naggs; ++a)
+    if (p.fn[a] != kSum) { p.smem_off[a] = static_cast<int32_t>(bytes); bytes += 4LL * kWindow; }
   p.cnt = cnt;
+  p.key_out = key_out;
+  p.valid_out = valid_out;
 
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int64_t want = (n + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < 32LL * sms ? want : 32LL * sms);
-  join_agg_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const void* kernel = reinterpret_cast<const void*>(join_agg_kernel);
+  const size_t smem = static_cast<size_t>(bytes);  // up to 139 KB (8 sums)
+  static const cudaError_t opted = allow_all_shared(kernel);
+  if (opted != cudaSuccess) return static_cast<int>(opted);
+  // one block per tile, at least enough to initialise the span, no more
+  // than are resident at once
+  int64_t blocks = (n + kTile - 1) / kTile;
+  const int64_t init_blocks = (span + kThreads * 8 - 1) / (kThreads * 8);
+  if (blocks < init_blocks) blocks = init_blocks;
+  const int resident = resident_blocks(kernel, kThreads, smem, kBlocksPerSm);
+  if (resident <= 0) return cudaErrorInvalidConfiguration;
+  if (blocks > resident) blocks = resident;
+  void* kargs[] = {&p};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      kernel, dim3(static_cast<unsigned>(blocks)), dim3(kThreads), kargs, smem,
+      static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 extern "C" const char* flock_error_string(int code) {

@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
 Each source has a plain C entry point that launches its kernel on the given
-stream and returns ``cudaGetLastError()``.  It is compiled by ``nvcc`` for
-Hopper (``sm_90a``) into ``flock_tpu_torch/build/`` on first use — a few
-seconds per file, since no PyTorch header is included — and loaded with
-ctypes.  A library older than its source rebuilds.
+stream and returns the launch's ``cudaError_t``.  K1 and K2 launch
+cooperatively (``cudaLaunchCooperativeKernel``, a grid-wide sync from
+``cooperative_groups``), which needs no flag beyond the usual ones (no
+``-rdc``).  Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+``flock_tpu_torch/build/`` on first use — a few seconds per file, since no
+PyTorch header is included — and loaded with ctypes.  A library older than
+its source or than a shared header (``csrc/*.cuh``) rebuilds.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no ``nvcc``.  (The reference has no counterpart: its Pallas
@@ -14,6 +17,7 @@ kernels compile inside ``jax.jit``.)
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -47,8 +51,13 @@ def _paths(name: str) -> tuple[str, str]:
 
 
 def _stale(name: str) -> bool:
+    """True when the library is missing or older than its source or any
+    shared header (``csrc/*.cuh``)."""
     src, lib = _paths(name)
-    return not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src)
+    if not os.path.exists(lib):
+        return True
+    deps = [src, *glob.glob(os.path.join(CSRC, "*.cuh"))]
+    return os.path.getmtime(lib) < max(map(os.path.getmtime, deps))
 
 
 def _start(name: str) -> tuple[subprocess.Popen, str]:

@@ -9,14 +9,13 @@ overflow when a valid key lies at or beyond ``min + out_capacity``.  There is
 no locality escape: the kernel handles any key in the span.
 
 On q4's path K2 slots the auction table by ``a_id`` (max of the taken
-columns plus a duplicate count) and computes the per-category sum + count.
+columns and the ``dups`` flag) and computes the per-category sum + count.
 """
 
 from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from flock_tpu_torch.ops import _build
@@ -25,10 +24,17 @@ I32_MAX = 2**31 - 1
 I32_MIN = -(2**31)
 
 FNS = ("count", "count_sum", "sum", "min", "max")
-# aggregate codes of both kernels (enum Fn in csrc/*.cu); count is the row
-# count itself and never reaches a kernel
+# K2 also takes ``dups`` (no column): a 0-d bool, set when some slot counted
+# more than one row — a build side's duplicate keys, read by the lookup join
+# and the fused pass without a reduction of their own
+K2_FNS = FNS + ("dups",)
+# aggregate codes of both kernels (enum Fn in csrc/warp_agg.cuh); count is
+# the row count itself and never reaches a kernel
 AGG_CODES = {"count_sum": 1, "sum": 2, "min": 3, "max": 4}
 _MAX_AGGS = 8
+# int32 entries of the per-block minima, and so the most blocks one launch
+# takes (132 SMs x 4 resident blocks on the H100 fit)
+_GRID_MAX = 1024
 
 
 def min_valid(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -57,8 +63,12 @@ def dense_agg_plain(keys, valid, agg_cols, aggs, out_capacity: int):
     overflow = (valid & ~in_range).any()
     seg = torch.where(in_range, rel, out_capacity)
     out = scatter_aggs(seg, in_range, agg_cols,
-                       list(aggs) + [(None, "count", "__cnt")], out_capacity)
+                       [a for a in aggs if a[1] != "dups"]
+                       + [(None, "count", "__cnt")], out_capacity)
     cnt = out.pop("__cnt")
+    for _, fn, name in aggs:
+        if fn == "dups":
+            out[name] = (cnt > 1).any()
     out["__key"] = slot_keys(m, out_capacity, keys.dtype)
     return out, cnt > 0, overflow
 
@@ -72,16 +82,16 @@ def _check(keys, valid, agg_cols, aggs, out_capacity):
         raise TypeError("dense_agg: valid must be a contiguous bool [n] "
                         "on the keys' device")
     for c, fn, _ in aggs:
-        if fn not in FNS:
+        if fn not in K2_FNS:
             raise NotImplementedError(f"dense_agg: aggregate {fn!r}")
-        if fn == "count":
+        if fn in ("count", "dups"):
             continue
         col = agg_cols[c]
         if col.dtype != torch.int32 or col.shape != (n,) \
                 or col.device != keys.device or not col.is_contiguous():
             raise TypeError(f"dense_agg: column {c} must be a contiguous "
                             "int32 [n] on the keys' device")
-    if sum(fn != "count" for _, fn, _ in aggs) > _MAX_AGGS:
+    if sum(fn in AGG_CODES for _, fn, _ in aggs) > _MAX_AGGS:
         raise NotImplementedError(f"dense_agg: more than {_MAX_AGGS} aggregates")
     if out_capacity <= 0 or out_capacity >= 2**31:
         raise ValueError(f"dense_agg: out_capacity {out_capacity}")
@@ -91,8 +101,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("dense_agg")
     if not getattr(lib, "_flock_argtypes", False):
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-        lib.flock_dense_agg.argtypes = [vp, vp, i64, vp, i32, i32, vp, vp, vp,
-                                        vp, vp, vp]
+        lib.flock_dense_agg.argtypes = [vp, vp, i64, i32, i32, vp, vp, vp, vp,
+                                        vp, vp, i32, vp]
         lib.flock_dense_agg.restype = ctypes.c_int
         lib._flock_argtypes = True
     return lib
@@ -102,7 +112,9 @@ def dense_agg(keys: torch.Tensor, valid: torch.Tensor,
               agg_cols: dict[str, torch.Tensor], aggs, out_capacity: int):
     """K2.  CPU tensors take :func:`dense_agg_plain`; CUDA tensors launch the
     kernel or raise.  Returns (out_cols with ``__key``, out_valid, overflow
-    as a 0-d bool tensor — no host sync)."""
+    as a 0-d bool tensor — no host sync).  On the card the call is one
+    launch: the outputs are ``torch.empty`` and the kernel computes the
+    minimum key and writes every output and flag itself."""
     aggs = list(aggs)
     _check(keys, valid, agg_cols, aggs, out_capacity)
     if keys.device.type == "cpu":
@@ -110,38 +122,34 @@ def dense_agg(keys: torch.Tensor, valid: torch.Tensor,
     if keys.device.type != "cuda":
         raise TypeError(f"dense_agg: unsupported device {keys.device}")
     dev = keys.device
-    m = min_valid(keys, valid)
-    cnt = torch.full((out_capacity,), 0, dtype=torch.int32, device=dev)
-    ovf = torch.full((1,), 0, dtype=torch.int32, device=dev)
-    out, fns, cols, outs = {}, [], [], []
+
+    def empty(dtype, size=out_capacity):
+        return torch.empty(size, dtype=dtype, device=dev)
+
+    cnt, key, ovalid = empty(torch.int32), empty(torch.int32), empty(torch.bool)
+    flags = empty(torch.bool, 2)          # overflow, duplicates
+    scratch = empty(torch.int32, _GRID_MAX)
+    out, packed = {}, []
     for c, fn, name in aggs:
         if fn == "count":
             out[name] = cnt
-            continue
-        if fn == "sum":
-            acc = torch.full((out_capacity,), 0, dtype=torch.int64, device=dev)
+        elif fn == "dups":
+            out[name] = flags[1]
         else:
-            init = {"min": I32_MAX, "max": I32_MIN}.get(fn, 0)
-            acc = torch.full((out_capacity,), init, dtype=torch.int32, device=dev)
-        out[name] = acc
-        fns.append(AGG_CODES[fn])
-        cols.append(agg_cols[c].data_ptr())
-        outs.append(acc.data_ptr())
-    n = keys.shape[0]
-    if n:
-        lib = _lib()
-        fns_h = np.asarray(fns, np.int32)
-        cols_h = np.asarray(cols, np.int64)
-        outs_h = np.asarray(outs, np.int64)
-        rc = lib.flock_dense_agg(
-            keys.data_ptr(), valid.data_ptr(), n, m.data_ptr(), out_capacity,
-            len(fns), fns_h.ctypes.data, cols_h.ctypes.data,
-            outs_h.ctypes.data, cnt.data_ptr(), ovf.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(lib, rc, "dense_agg")
-        dense_agg.launches += 1
-    out["__key"] = slot_keys(m, out_capacity, keys.dtype)
-    return out, cnt > 0, ovf[0] != 0
+            acc = empty(torch.int64 if fn == "sum" else torch.int32)
+            out[name] = acc
+            packed += (AGG_CODES[fn], agg_cols[c].data_ptr(), acc.data_ptr())
+    out["__key"] = key
+    lib = _lib()
+    rc = lib.flock_dense_agg(
+        keys.data_ptr(), valid.data_ptr(), keys.shape[0], out_capacity,
+        len(packed) // 3, (ctypes.c_int64 * len(packed))(*packed),
+        cnt.data_ptr(), key.data_ptr(), ovalid.data_ptr(), flags.data_ptr(),
+        scratch.data_ptr(), _GRID_MAX,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "dense_agg")
+    dense_agg.launches += 1
+    return out, ovalid, flags[0]
 
 
 dense_agg.launches = 0

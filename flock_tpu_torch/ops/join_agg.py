@@ -19,16 +19,15 @@ version there.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
-import numpy as np
 import torch
 
 from flock_tpu_torch.ops import _build
-from flock_tpu_torch.ops.dense_agg import (AGG_CODES, FNS, I32_MAX, I32_MIN,
-                                          slot_keys)
+from flock_tpu_torch.ops.dense_agg import AGG_CODES, FNS, slot_keys
 
 _OPS = {"<": 0, "<=": 1, ">": 2, ">=": 3, "==": 4, "!=": 5}
-_MAX_COLS, _MAX_TERMS, _MAX_AGGS = 16, 8, 8
+_MAX_COLS, _MAX_TERMS, _MAX_AGGS, _MAX_PROBE = 16, 8, 8, 4
 _I64_SPAN = 2**31 - 2
 
 
@@ -37,11 +36,12 @@ def _rebase_i64(slot_cols, present, probe_cols, probe_valid):
     over live values — to int32, which keeps comparisons between them exact.
     Returns (slot_cols, probe_cols, escape): ``escape`` is set when the live
     int64 values span 2³¹ or more (the ``_rebased`` contract)."""
+    from flock_tpu_torch.ops.kernels import false_flag  # kernels imports us
+
     i64_p = [k for k, v in probe_cols.items() if v.dtype == torch.int64]
     i64_s = [k for k, v in slot_cols.items() if v.dtype == torch.int64]
     if not i64_p and not i64_s:
-        return slot_cols, probe_cols, torch.zeros((), dtype=torch.bool,
-                                                  device=present.device)
+        return slot_cols, probe_cols, false_flag(present.device)
     big, small = torch.iinfo(torch.int64).max, torch.iinfo(torch.int64).min
     pairs = [(probe_cols[k], probe_valid) for k in i64_p] \
         + [(slot_cols[k], present) for k in i64_s]
@@ -108,76 +108,86 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("join_agg")
     if not getattr(lib, "_flock_argtypes", False):
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-        lib.flock_join_agg.argtypes = [vp, vp, i64, vp, vp, i64, i32, vp, vp,
-                                       i32, vp, i32, vp, vp, vp, vp, vp]
+        lib.flock_join_agg.argtypes = [vp, vp, i64, vp, vp, i64, i32, i32, i32,
+                                       vp, vp, vp, vp, vp]
         lib.flock_join_agg.restype = ctypes.c_int
         lib._flock_argtypes = True
     return lib
 
 
-def _launch(slot_cols, present, m, probe_cols, probe_valid, probe_key, pred,
-            aggs):
-    terms = getattr(pred, "terms", None) if pred is not None else ()
-    if terms is None:
-        raise NotImplementedError(
-            "join_agg: the kernel reads only conjunctions of column "
-            f"comparisons (plan.Conj), got {pred!r}")
-    dev, span, n = present.device, present.shape[0], probe_valid.shape[0]
+@lru_cache(maxsize=256)
+def _codes(slot_names: tuple, probe_names: tuple, terms: tuple, aggs: tuple):
+    """The kernel's column table and codes for one call signature, cached:
+    (names of the columns the kernel reads, their sides, the packed codes
+    ``sides + terms + (fn, column) pairs``).  A name on both sides reads the
+    slot column, as the plain version."""
     names: list[str] = []
 
     def col(name):
-        if name not in slot_cols and name not in probe_cols:
+        if name not in slot_names and name not in probe_names:
             raise KeyError(f"join_agg: unknown column {name}")
         if name not in names:
             names.append(name)
         return names.index(name)
 
-    term_h = []
+    term_codes = []
     for lhs, op, rhs in terms:
         if op not in _OPS:
             raise NotImplementedError(f"join_agg: comparison {op!r}")
-        term_h += [col(lhs), _OPS[op], col(rhs)]
-    cnt = torch.full((span,), 0, dtype=torch.int32, device=dev)
-    out, fns, acols, outs = {}, [], [], []
+        term_codes += [col(lhs), _OPS[op], col(rhs)]
+    agg_codes = []
+    for c, fn, _ in aggs:
+        if fn != "count":
+            agg_codes += [AGG_CODES[fn], col(c)]
+    sides = tuple(int(c in slot_names) for c in names)
+    if len(names) > _MAX_COLS or len(terms) > _MAX_TERMS \
+            or len(agg_codes) // 2 > _MAX_AGGS \
+            or len(sides) - sum(sides) > _MAX_PROBE:
+        raise NotImplementedError(
+            "join_agg: too many columns, terms, aggregates or probe columns "
+            f"(at most {_MAX_PROBE}) for the kernel")
+    return tuple(names), sides, sides + tuple(term_codes + agg_codes)
+
+
+def _launch(slot_cols, present, m, probe_cols, probe_valid, probe_key, pred,
+            aggs):
+    """One cooperative launch; the outputs are ``torch.empty`` and the
+    kernel initialises them, writes the slot keys and out_valid."""
+    terms = getattr(pred, "terms", None) if pred is not None else ()
+    if terms is None:
+        raise NotImplementedError(
+            "join_agg: the kernel reads only conjunctions of column "
+            f"comparisons (plan.Conj), got {pred!r}")
+    names, sides, codes = _codes(tuple(slot_cols), tuple(probe_cols),
+                                 tuple(terms), tuple(aggs))
+    dev, span, n = present.device, present.shape[0], probe_valid.shape[0]
+
+    def empty(dtype):
+        return torch.empty(span, dtype=dtype, device=dev)
+
+    cnt, key, ovalid = empty(torch.int32), empty(torch.int32), empty(torch.bool)
+    out, outs = {}, []
     for c, fn, name in aggs:
         if fn == "count":
             out[name] = cnt
-            continue
-        if fn == "sum":
-            acc = torch.full((span,), 0, dtype=torch.int64, device=dev)
         else:
-            init = {"min": I32_MAX, "max": I32_MIN}.get(fn, 0)
-            acc = torch.full((span,), init, dtype=torch.int32, device=dev)
-        out[name] = acc
-        fns.append(AGG_CODES[fn])
-        acols.append(col(c))
-        outs.append(acc.data_ptr())
-    if len(names) > _MAX_COLS or len(terms) > _MAX_TERMS \
-            or len(fns) > _MAX_AGGS:
-        raise NotImplementedError("join_agg: too many columns, terms or "
-                                  "aggregates for the kernel")
-    if n and span:
-        # a name on both sides reads the slot column, as the plain version
-        cols_h = np.asarray([(slot_cols[c] if c in slot_cols
-                              else probe_cols[c]).data_ptr() for c in names],
-                            np.int64)
-        slot_h = np.asarray([c in slot_cols for c in names], np.int32)
-        term_h = np.asarray(term_h, np.int32)
-        fns_h = np.asarray(fns, np.int32)
-        acols_h = np.asarray(acols, np.int32)
-        outs_h = np.asarray(outs, np.int64)
+            out[name] = acc = empty(torch.int64 if fn == "sum" else torch.int32)
+            outs.append(acc.data_ptr())
+    out["__key"] = key
+    if span:
+        ptrs = [(slot_cols[c] if side else probe_cols[c]).data_ptr()
+                for c, side in zip(names, sides)]
+        args = [*ptrs, *codes, *outs]
         lib = _lib()
         rc = lib.flock_join_agg(
             probe_cols[probe_key].data_ptr(), probe_valid.data_ptr(), n,
-            present.data_ptr(), m.data_ptr(), span, len(names),
-            cols_h.ctypes.data, slot_h.ctypes.data, len(terms),
-            term_h.ctypes.data, len(fns), fns_h.ctypes.data,
-            acols_h.ctypes.data, outs_h.ctypes.data, cnt.data_ptr(),
+            present.data_ptr(), m.data_ptr(), span, len(names), len(terms),
+            len(outs), (ctypes.c_int64 * len(args))(*args), cnt.data_ptr(),
+            key.data_ptr(), ovalid.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         _build.check(lib, rc, "join_agg")
         join_aggregate.launches += 1
-    out["__key"] = slot_keys(m, span, torch.int32)
-    return out, cnt > 0
+    return out, ovalid
 
 
 def join_aggregate(slot_cols: dict[str, torch.Tensor], present: torch.Tensor,

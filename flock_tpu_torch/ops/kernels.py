@@ -19,9 +19,29 @@ from functools import reduce
 import torch
 
 from flock_tpu_torch.config import CONFIG
-from flock_tpu_torch.ops.dense_agg import FNS as _K2_FNS
+from flock_tpu_torch.ops.dense_agg import K2_FNS as _K2_FNS
 from flock_tpu_torch.ops.dense_agg import I32_MAX, dense_agg, dense_agg_plain
 from flock_tpu_torch.ops.gather import gather
+
+_FALSE: dict = {}
+
+
+def false_flag(device) -> torch.Tensor:
+    """A 0-d False on ``device``, made once per device and shared: a flag
+    that is clear by construction costs no device operation.  Nothing writes
+    a flag in place."""
+    f = _FALSE.get(device)
+    if f is None:
+        f = torch.zeros((), dtype=torch.bool, device=device)
+        _FALSE[device] = _FALSE[f.device] = f
+    return f
+
+
+def any_flag(*flags: torch.Tensor) -> torch.Tensor:
+    """OR of 0-d bool flags, leaving out the shared clear ones
+    (``false_flag``): one device operation per flag that can be set."""
+    live = [f for f in flags if f is not _FALSE.get(f.device)]
+    return reduce(torch.logical_or, live) if live else flags[0]
 
 
 def _shift_ne(k: torch.Tensor) -> torch.Tensor:
@@ -151,7 +171,7 @@ def dense_group_aggregate(cols: dict[str, torch.Tensor], valid: torch.Tensor,
     out, ovalid, ovf = (dense_agg if on_k2 else dense_agg_plain)(
         k, valid, cols, aggs, out_capacity)
     out[key] = out.pop("__key")
-    return out, ovalid, ovf, torch.zeros((), dtype=torch.bool, device=k.device)
+    return out, ovalid, ovf, false_flag(k.device)
 
 
 def group_aggregate(cols: dict[str, torch.Tensor], valid: torch.Tensor,
@@ -188,8 +208,7 @@ def group_aggregate(cols: dict[str, torch.Tensor], valid: torch.Tensor,
     out.update(scatter_aggs(seg, svalid, scols, aggs, out_capacity))
     out_valid = torch.arange(out_capacity, device=seg.device) \
         < torch.clamp(n_seg, max=out_capacity)
-    return out, out_valid, n_seg > out_capacity, torch.zeros(
-        (), dtype=torch.bool, device=seg.device)
+    return out, out_valid, n_seg > out_capacity, false_flag(seg.device)
 
 
 def lookup_join(build_cols: dict[str, torch.Tensor], build_valid: torch.Tensor,
@@ -207,8 +226,8 @@ def lookup_join(build_cols: dict[str, torch.Tensor], build_valid: torch.Tensor,
       it stands — no slotting, no duplicate check;
     * ``dup_expand=False`` (a declared-unique build, q13's side input): the
       build is slotted by key with ``dense_group_aggregate`` (kernel K2: max
-      of the taken columns plus a row count per key), and duplicate keys
-      raise overflow;
+      of the taken columns and the ``dups`` flag), and duplicate keys raise
+      overflow;
     * duplicate-faithful (the default): slotted the same way, and duplicate
       keys raise ``escape``.  The executor's rerun lowers the plan with
       ``fallback=True``, where every build row beyond the first with the
@@ -230,15 +249,15 @@ def lookup_join(build_cols: dict[str, torch.Tensor], build_valid: torch.Tensor,
     dev = bk.device
     if build_slotted:
         slots, present, m = build_cols, build_valid, bk[0]
-        ovf_b = esc = has_dups = torch.zeros((), dtype=torch.bool, device=dev)
+        ovf_b = esc = has_dups = false_flag(dev)
     else:
         slot_aggs = [(src, "max", src) for src in take_list] \
-            + [(None, "count", "__dupcnt")]
+            + [(None, "dups", "__dups")]
         slots, present, ovf_b, esc = dense_group_aggregate(
             {build_key: bk, **{src: build_cols[src] for src in take_list}},
             build_valid, build_key, slot_aggs, bk.shape[0] + span_margin,
             rebase=not fallback)
-        has_dups = (slots.pop("__dupcnt") > 1).any()
+        has_dups = slots.pop("__dups")
         m = slots[build_key][0]   # min(valid build keys), the key of slot 0
 
     pk = probe_cols[probe_key]
@@ -257,8 +276,8 @@ def lookup_join(build_cols: dict[str, torch.Tensor], build_valid: torch.Tensor,
         out = {c: pad(col) for c, col in probe_cols.items()}
         out.update({take[src]: pad(gathered[src]) for src in take_list})
         if expand:
-            return out, pad(hit), ovf_b, esc | has_dups
-        return out, hit, ovf_b | has_dups, esc
+            return out, pad(hit), ovf_b, any_flag(esc, has_dups)
+        return out, hit, any_flag(ovf_b, has_dups), esc
 
     # the fan-out: sort the build side by key, locate each probe key's range
     # with two binary searches, emit the first duplicate in the probe's own
@@ -291,4 +310,4 @@ def lookup_join(build_cols: dict[str, torch.Tensor], build_valid: torch.Tensor,
     for src_name in take_list:
         sb = build_cols[src_name][order]
         out[take[src_name]] = torch.where(is_extra, sb[bsrc], pad(sb[loc]))
-    return out, hit0E | is_extra, ovf_b | ex_ovf, esc
+    return out, hit0E | is_extra, any_flag(ovf_b, ex_ovf), esc

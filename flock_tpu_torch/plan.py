@@ -193,10 +193,6 @@ class Lowered:
     escape: torch.Tensor
 
 
-def _false(device) -> torch.Tensor:
-    return torch.zeros((), dtype=torch.bool, device=device)
-
-
 def lower(node: Node, tables: dict[str, Batch], agg_capacity: int | None = None,
           fallback: bool = False) -> Lowered:
     """Recursively lower a plan over concrete input batches.  ``fallback``
@@ -205,7 +201,7 @@ def lower(node: Node, tables: dict[str, Batch], agg_capacity: int | None = None,
     rebased (the escape rerun)."""
     if isinstance(node, Scan):
         b = tables[node.relation]
-        f = _false(b.valid.device)
+        f = kernels.false_flag(b.valid.device)
         return Lowered(dict(b.columns), b.valid, f, f)
 
     if isinstance(node, Filter):
@@ -224,7 +220,8 @@ def lower(node: Node, tables: dict[str, Batch], agg_capacity: int | None = None,
         cols, valid, ovf, esc = kernels.group_aggregate(
             c.cols, c.valid, list(node.group_keys), list(node.aggs), cap,
             rebase=not fallback)
-        return Lowered(cols, valid, c.overflow | ovf, c.escape | esc)
+        return Lowered(cols, valid, kernels.any_flag(c.overflow, ovf),
+                       kernels.any_flag(c.escape, esc))
 
     if isinstance(node, Join):
         b = lower(node.build, tables, agg_capacity, fallback)
@@ -248,8 +245,9 @@ def lower(node: Node, tables: dict[str, Batch], agg_capacity: int | None = None,
             dup_expand=not node.unique_build, fallback=fallback)
         if node.post_filter is not None:
             valid = valid & node.post_filter(cols)
-        return Lowered(cols, valid, b.overflow | p.overflow | ovf,
-                       b.escape | p.escape | esc)
+        return Lowered(cols, valid,
+                       kernels.any_flag(b.overflow, p.overflow, ovf),
+                       kernels.any_flag(b.escape, p.escape, esc))
 
     if isinstance(node, FusedJoinAggregate):
         return _lower_fused(node, tables, agg_capacity, fallback)
@@ -299,27 +297,28 @@ def fused_supported(node: FusedJoinAggregate, b_cols, p_cols) -> bool:
 def fused_local_pass(node: FusedJoinAggregate, b_cols, b_valid, p_cols,
                      p_valid):
     """The fused join + filter + aggregate core over already-lowered sides:
-    build slotting (K2: max of the taken columns and a duplicate count per
-    key), then the fused probe pass (K1).  Returns (out_cols, valid,
-    slot_overflow, escape)."""
+    build slotting (K2: max of the taken columns and the duplicate-key
+    flag), then the fused probe pass (K1).  Returns (out_cols, valid,
+    slot_overflow, escape).  K1 counts only pairs on present slots, so its
+    out_valid already lies within ``present``."""
     jn = node.join
     span = b_valid.shape[0] + CONFIG.join_span_margin
     take = dict(jn.take)
     slot_aggs = [(src, "max", src) for src in take] \
-        + [(None, "count", "__dupcnt")]
+        + [(None, "dups", "__dups")]
     slots, present, ovf_b, esc_b = kernels.dense_group_aggregate(
         {jn.build_key: b_cols[jn.build_key], **{s: b_cols[s] for s in take}},
         b_valid, jn.build_key, slot_aggs, span)
     # duplicate build keys invalidate the max-collapsed slots and the
     # functional dependencies of the clean pass: escape to the fallback
-    has_dups = (slots.pop("__dupcnt") > 1).any()
+    has_dups = slots.pop("__dups")
     m = slots[jn.build_key][0]
     slot_cols = {dst: slots[src] for src, dst in take.items()}
     out, ovalid, esc = join_aggregate(
         slot_cols, present, m, p_cols, p_valid, jn.probe_key,
         _fused_pred(node), _fused_clean_aggs(node))
     out[node.group_key] = out.pop("__key")
-    return out, ovalid & present, ovf_b, esc | esc_b | has_dups
+    return out, ovalid, ovf_b, kernels.any_flag(esc, esc_b, has_dups)
 
 
 def _lower_fused(node: FusedJoinAggregate, tables, agg_capacity,
@@ -336,8 +335,8 @@ def _lower_fused(node: FusedJoinAggregate, tables, agg_capacity,
         return lower(fb_node, tables, span, fallback)
     out, valid, ovf_b, esc = fused_local_pass(
         node, b.cols, b.valid, p.cols, p.valid)
-    return Lowered(out, valid, b.overflow | p.overflow,
-                   b.escape | p.escape | esc | ovf_b)
+    return Lowered(out, valid, kernels.any_flag(b.overflow, p.overflow),
+                   kernels.any_flag(b.escape, p.escape, esc, ovf_b))
 
 
 def compile_plan(root: Node, agg_capacity: int | None = None):

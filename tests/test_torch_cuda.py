@@ -12,12 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+from flock_tpu_torch import plan
 from flock_tpu_torch.ops.dense_agg import dense_agg, dense_agg_plain
 from flock_tpu_torch.ops.gather import gather, gather_plain
 from flock_tpu_torch.ops.join_agg import join_agg_plain, join_aggregate
 from flock_tpu_torch.plan import Conj
 from flock_tpu_torch.queries.nexmark import get_query
 from flock_tpu_torch.runtime.stream import StreamDriver, generate_epochs
+from torch_kernel_cases import (K1_AGGS, K1_CASES, K1_TERMS, K2_AGGS,
+                                K2_CASES, k1_case, k2_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -72,6 +75,133 @@ def test_dense_agg_hot_keys(dev):
     want = dense_agg_plain(keys, valid, cols, aggs, 128)
     _same(got[0], want[0])
     assert not bool(got[2])
+
+
+def _on(dev, x, offset=0):
+    """numpy → a tensor on ``dev``; ``offset`` > 0 makes it a view that
+    starts ``offset`` elements into its allocation (not 16-byte aligned)."""
+    if isinstance(x, dict):
+        return {k: _on(dev, v, offset) for k, v in x.items()}
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if offset:
+        t = torch.cat([t[:1].repeat(offset), t])
+    return t.to(dev)[offset:]
+
+
+def _k1_same(dev, slots, present, m, probe, pvalid, offset=0):
+    args = (_on(dev, slots), _on(dev, present),
+            torch.tensor(int(m), dtype=torch.int32, device=dev),
+            _on(dev, probe, offset), _on(dev, pvalid, offset), "k",
+            Conj(K1_TERMS), K1_AGGS)
+    got, gvalid, esc = join_aggregate(*args)
+    want, wvalid = join_agg_plain(*args)
+    _same(got, want)
+    assert torch.equal(gvalid, wvalid) and not bool(esc)
+    return gvalid
+
+
+@pytest.mark.parametrize("case", K1_CASES)
+def test_join_agg_adversarial_equals_plain(dev, case):
+    """Past one 2048-row tile and one 2048-slot window: all lanes on one
+    slot, keys the window misses, keys behind it and before m, a span
+    below the window, ragged and tiny n, no valid row."""
+    gvalid = _k1_same(dev, *k1_case(case, span=248_192, n=1_000_000,
+                                    seed=len(case)))
+    assert bool(gvalid.any()) == (case != "all_invalid")
+
+
+@pytest.mark.parametrize("case", ["uniform", "n_odd"])
+def test_join_agg_unaligned_columns_equal_plain(dev, case):
+    """Probe columns that start off a 16-byte boundary take element loads."""
+    _k1_same(dev, *k1_case(case, span=248_192, n=500_000), offset=1)
+
+
+@pytest.mark.parametrize("case", K2_CASES)
+def test_dense_agg_adversarial_equals_plain(dev, case):
+    """Both variants on both sides of the shared-memory limit, every lane on
+    one key, ragged and tiny n, no valid row (m the sentinel), and the
+    duplicate flag."""
+    keys, valid, cols, cap = k2_case(case, n=500_000, cap=300_000,
+                                     seed=len(case))
+    args = (_on(dev, keys), _on(dev, valid), _on(dev, cols), K2_AGGS, cap)
+    got, gvalid, ovf = dense_agg(*args)
+    want, wvalid, wovf = dense_agg_plain(*args)
+    _same(got, want)
+    assert torch.equal(gvalid, wvalid) and bool(ovf) == bool(wovf)
+    assert bool(got["d"]) == bool((want["c"] > 1).any())
+
+
+@pytest.mark.parametrize("cap", [128, 300_000])
+def test_dense_agg_unaligned_columns_equal_plain(dev, cap):
+    keys, valid, cols, _ = k2_case("uniform", n=100_001, cap=cap)
+    args = (_on(dev, keys, 1), _on(dev, valid, 1), _on(dev, cols, 1),
+            K2_AGGS, cap)
+    got, gvalid, _ = dense_agg(*args)
+    want, wvalid, _ = dense_agg_plain(*args)
+    _same(got, want)
+    assert torch.equal(gvalid, wvalid)
+
+
+def test_kernels_initialise_every_output(dev, monkeypatch):
+    """Every output allocation of the wrappers (``torch.empty``) holds 0x7f
+    bytes when the kernel starts — what a freed tensor of such bytes leaves
+    for the caching allocator to hand back — and the outputs still equal the
+    plain versions: the kernels write every output themselves."""
+    empty = torch.empty
+
+    def stale_empty(*shape, **kw):
+        t = empty(*shape, **kw)
+        t.view(torch.uint8).fill_(0x7f)
+        return t
+
+    span, n = 300_000, 1_000_000
+    slots, present, m, probe, pvalid = k1_case("behind_and_before", span=span,
+                                               n=n)
+    keys, valid, cols, _ = k2_case("uniform", n=n, cap=span)
+    k1_args = (_on(dev, slots), _on(dev, present),
+               torch.tensor(int(m), dtype=torch.int32, device=dev),
+               _on(dev, probe), _on(dev, pvalid), "k", Conj(K1_TERMS),
+               K1_AGGS)
+    for cap in (128, span):   # K2's shared-memory and global variants
+        k2_args = (_on(dev, keys % cap), _on(dev, valid), _on(dev, cols),
+                   K2_AGGS, cap)
+        for kernel, plain, args in ((join_aggregate, join_agg_plain, k1_args),
+                                    (dense_agg, dense_agg_plain, k2_args)):
+            want = plain(*args)
+            with monkeypatch.context() as mp:
+                mp.setattr(torch, "empty", stale_empty)
+                got = kernel(*args)
+            _same(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+
+
+def test_fused_pass_valid_within_present_on_card(dev):
+    """No ``& present`` after K1: on a window whose bids hit absent slots
+    the fused pass on the card equals the CPU path, valid slots present."""
+    rng = np.random.default_rng(8)
+    na, n = 240_000, 1_000_000
+    a_ts = rng.integers(0, 500, na).astype(np.int32)
+    b = {"a_id": (1000 + np.arange(na)).astype(np.int32), "a_date_time": a_ts,
+         "expires": (a_ts + rng.integers(10, 900, na)).astype(np.int32),
+         "category": rng.integers(10, 15, na).astype(np.int32)}
+    bvalid = rng.random(na) < 0.8
+    f = np.arange(n) * na // n
+    p = {"auction": (1000 + np.clip(f - rng.integers(0, 100, n), 0, na - 1)
+                     ).astype(np.int32),
+         "price": rng.integers(1, 10**6, n).astype(np.int32),
+         "b_date_time": rng.integers(0, 900, n).astype(np.int32)}
+    pvalid = rng.random(n) < 0.95
+    node = next(x for x in plan.walk(plan.fuse_join_aggregates(
+        get_query(4).plan)) if isinstance(x, plan.FusedJoinAggregate))
+    runs = [plan.fused_local_pass(node, _on(d, b), _on(d, bvalid), _on(d, p),
+                                  _on(d, pvalid)) for d in (dev, "cpu")]
+    (gout, gvalid, _, gesc), (cout, cvalid, _, cesc) = runs
+    assert not bool(gesc) and not bool(cesc)
+    assert torch.equal(gvalid.cpu(), cvalid) and cvalid.any()
+    for k in cout:
+        assert torch.equal(gout[k].cpu(), cout[k]), k
+    absent_ids = torch.from_numpy(b["a_id"][~bvalid])
+    assert not torch.isin(cout["auction"][cvalid], absent_ids).any()
 
 
 def _join_case(dev, seed, miss=False):
