@@ -12,13 +12,18 @@ and the script exits non-zero:
 1. environment: torch / CUDA / nvcc / triton versions, the card, the kernel
    build time, and the device-to-device copy bandwidth (1 GiB copy);
 2. each kernel against its plain PyTorch version on the same CUDA tensors,
-   at the shapes of one bench window of the queries that run it, and K1 and
-   K2 on adversarial shapes off the main path (every key on one slot, keys
-   K1's window misses, ragged and tiny inputs, no valid row, unaligned
-   columns, K2 on both sides of its shared-memory limit), exact integer
-   equality, with CUDA event timings of the kernel, the plain version and
-   the nearest single PyTorch call, the device operations per wrapper call,
-   and each case's byte bound;
+   at the shapes of one bench window of the queries that run it (K3 at q3
+   as the clean duplicate-faithful join: three columns gathered and seven
+   carried to the fan-out capacity in one launch), and on adversarial
+   shapes off the main path (K1 and K2: every key on one slot, keys K1's
+   window misses, ragged and tiny inputs, no valid row, unaligned columns,
+   K2 on both sides of its shared-memory limit; K3: one hot slot, all
+   misses, uniform keys, keys at the int32 extremes, a span of 1, n in
+   {1, 3, 4, 5, 1003}, unaligned probe columns, 8-byte, mixed and eight
+   columns, a ragged carry), exact equality on every output row, with CUDA
+   event timings of the kernel, the plain version and the nearest single
+   PyTorch call, the host's share of the call, the device operations per
+   wrapper call, and each case's byte bound;
 3. NEXMark q4, q9 and q13 at the bench size (4 s x 4 M events/s, the same
    generated epochs, element-wise windows) and q3 at its bench size (4 s x
    16 M events/s), each through ``StreamDriver`` on the card: every kernel
@@ -151,6 +156,13 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def nbytes_once(*tensors) -> int:
+    """Bytes of ``tensors`` with a tensor passed twice counted once (q3's
+    probe key is also one of its carried columns: the function reads it
+    once)."""
+    return nbytes(*{(t.data_ptr(), nbytes(t)): t for t in tensors}.values())
+
+
 # -- phase 1 -------------------------------------------------------------------
 
 
@@ -227,24 +239,44 @@ def _check_k1(slots, present, m, probe, pvalid, pred, aggs):
     return err, int(v1.sum())
 
 
-def _check_k3(slots, present, m, keys, valid, what):
-    """K3 against its plain version; the case must hold hits, misses and
-    present keys whose slot is absent."""
+def _k3_case(what, slots, present, m, keys, valid, out_rows=None,
+             carry=None, main_path=True) -> dict:
+    """K3 against its plain version on every output row, and its timing
+    case.  A main-path case must hold hits, misses and present keys whose
+    slot is absent.  The library yardstick is ``slots[idx]`` of one column;
+    the bytes are every distinct input read once (keys, valid, present, the
+    slot and carried columns) and every output written once (gathered,
+    carried and hit, at the output rows)."""
     from flock_tpu_torch.ops.gather import gather, gather_plain
 
-    o1, h1 = gather(slots, present, m, keys, valid)
-    o2, h2 = gather_plain(slots, present, m, keys, valid)
+    o1, h1 = gather(slots, present, m, keys, valid, out_rows, carry)
+    o2, h2 = gather_plain(slots, present, m, keys, valid, out_rows, carry)
     torch.cuda.synchronize()
+    if list(o1) != list(o2):
+        raise AssertionError(f"gather {what}: outputs {list(o1)} vs {list(o2)}")
     err = _equal(o1, o2, list(o2))
     if not torch.equal(h1, h2):
         raise AssertionError(f"gather {what}: hit differs")
     rel = keys.to(torch.int64) - m.to(torch.int64)
-    in_span = valid & (rel >= 0) & (rel < present.shape[0])
-    absent = in_span & ~present[torch.where(in_span, rel, 0)]
-    counts = [int(h1.sum()), int((valid & ~in_span).sum()), int(absent.sum())]
-    if min(counts) == 0:
-        raise AssertionError(f"gather {what}: hits/misses/absent {counts}")
-    return err, o1
+    if main_path:
+        in_span = valid & (rel >= 0) & (rel < present.shape[0])
+        absent = in_span & ~present[torch.where(in_span, rel, 0)]
+        counts = [int(h1.sum()), int((valid & ~in_span).sum()),
+                  int(absent.sum())]
+        if min(counts) == 0:
+            raise AssertionError(f"gather {what}: hits/misses/absent {counts}")
+    col0 = next(iter(slots.values()))
+    idx = rel.clamp(0, present.shape[0] - 1)
+    return dict(
+        kernel=lambda: gather(slots, present, m, keys, valid, out_rows, carry),
+        plain=lambda: gather_plain(slots, present, m, keys, valid, out_rows,
+                                   carry),
+        library=lambda: col0[idx],
+        library_call="slots[idx] of one column",
+        device_kernel="gather_kernel",
+        bytes=nbytes_once(keys, valid, present, *slots.values(),
+                          *(carry or {}).values()) + nbytes(*o1.values(), h1),
+        err=err, main_path=main_path)
 
 
 def _k1_bytes(slots, present, probe, pvalid, aggs) -> int:
@@ -366,14 +398,80 @@ def _adversarial_cases(slots, present, m, probe, pvalid, pred, k1_aggs,
     return cases
 
 
+def _k3_adversarial(q9_slots, fvalid, m, keys, pvalid, q3, rng) -> dict:
+    """K3 on shapes off the main path, each against its plain version on
+    every output row: every key on one slot, every key a miss, keys
+    uniform over the span (each gather a random L2 sector), m near
+    INT32_MIN with keys near INT32_MAX and m near INT32_MAX with keys near
+    INT32_MIN (a 32-bit key - m would wrap into the span), a span of 1,
+    n in {1, 3, 4, 5, 1003}, q3's carry case with its probe side one element
+    off a 16-byte boundary (the row-by-row and byte paths), one 8-byte
+    column, mixed 4/8-byte columns, eight columns (the run-time signature),
+    and mixed columns carried from n = 1003 to 1009 rows."""
+    dev = keys.device
+    span, n = fvalid.shape[0], keys.shape[0]
+    m0 = int(m)
+    i32_min, i32_max = -(2**31), 2**31 - 1
+    q3_slots, p_present, m3, sellers, svalid, q3_carry = q3
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def scalar(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    def unaligned(x):
+        return torch.cat([x[:1], x])[1:]
+
+    cases = {}
+
+    def k3(name, *args):
+        cases[f"gather/{name}"] = _k3_case(name, *args, main_path=False)
+
+    hot = int(torch.nonzero(fvalid)[0])   # a present slot
+    k3("one_slot", q9_slots, fvalid, m, torch.full_like(keys, m0 + hot),
+       pvalid)
+    k3("all_miss", q9_slots, fvalid, m, keys + 2 * span, pvalid)
+    k3("uniform", q9_slots, fvalid, m,
+       t((m0 + rng.integers(-50, span + 50, n)).astype(np.int32)), pvalid)
+    near = (keys.to(torch.int64) - m0).clamp(0, span - 1)
+    far = t(rng.random(n) < 0.5)
+    j = t(rng.integers(0, span - 100, n))
+    k3("far_above", q9_slots, fvalid, scalar(i32_min + 7),
+       torch.where(far, i32_max - j, i32_min + 7 + near).to(torch.int32),
+       pvalid)
+    k3("far_below", q9_slots, fvalid, scalar(i32_max - 99),
+       torch.where(far, i32_min + j, i32_max - 99 + near % 100)
+       .to(torch.int32), pvalid)
+    k3("span_1", {k: v[:1] for k, v in q9_slots.items()},
+       torch.ones(1, dtype=torch.bool, device=dev), m,
+       t((m0 + rng.integers(-1, 2, n)).astype(np.int32)), pvalid)
+    for rows in (1, 3, 4, 5, 1003):
+        k3(f"n_{rows}", q9_slots, fvalid, m, keys[:rows], pvalid[:rows])
+    k3("unaligned", q3_slots, p_present, m3, unaligned(sellers),
+       unaligned(svalid), q3_carry["a_id"].shape[0] * 3 // 2,
+       {k: unaligned(v) for k, v in q3_carry.items()})
+    i32 = t(rng.integers(i32_min, i32_max, span).astype(np.int32))
+    i64 = t(rng.integers(-(2**62), 2**62, span).astype(np.int64))
+    mixed = {"a": i32, "ts": i64,
+             "f": t(rng.random(span).astype(np.float32)),
+             "d": t(rng.random(span))}
+    k3("wide", {"ts": i64}, fvalid, m, keys, pvalid)
+    k3("mixed", mixed, fvalid, m, keys, pvalid)
+    k3("eight_cols", {f"c{i}": i64 + i if i % 3 == 0 else i32 ^ i
+                      for i in range(8)}, fvalid, m, keys, pvalid)
+    k3("carry_ragged", mixed, fvalid, m, keys[:1003], pvalid[:1003], 1009,
+       {k: v[:1003] for k, v in q3_carry.items()})
+    return cases
+
+
 def phase_kernels(env: dict) -> list[dict]:
     """Each kernel against its plain version at one bench window's shapes
     (4 M events/s: ~240 k auctions, ~3.68 M bids; q3 at 16 M events/s:
     ~320 k persons, ~960 k auctions), inputs from a seed."""
     from flock_tpu_torch.ops.dense_agg import dense_agg, dense_agg_plain
-    from flock_tpu_torch.ops.gather import gather, gather_plain
     from flock_tpu_torch.ops.join_agg import join_agg_plain, join_aggregate
-    from flock_tpu_torch.plan import Conj
+    from flock_tpu_torch.plan import Conj, dup_expand_capacity
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -466,21 +564,19 @@ def phase_kernels(env: dict) -> list[dict]:
     # K3: q9's second join — the fused pass's slots (final per auction)
     # gathered to every bid — then q13's side-input join (10,000 keys from
     # 1000, 18,304 slots, most bids miss) and q3's person join (~328 k
-    # person slots, half absent after the state filter, ~960 k auctions)
+    # person slots, half absent after the state filter, ~960 k auctions) as
+    # its clean duplicate-faithful pass: three person columns gathered and
+    # the seven auction columns carried to dup_expand_capacity rows
     k3 = {}
     q9_slots = {"final": fused["final"]}
-    err_q9, g_q9 = _check_k3(q9_slots, fvalid, m, probe["auction"], pvalid,
-                                "q9")
-    k3["gather/q9"] = (q9_slots, fvalid, m, probe["auction"], pvalid, err_q9,
-                       g_q9)
+    k3["gather/q9"] = _k3_case("q9", q9_slots, fvalid, m, probe["auction"],
+                               pvalid)
     si_span = 10_112 + 8_192
     si_present = t(np.arange(si_span) < 10_000)
     q13_slots = {"value": t((m0 + np.arange(si_span)).astype(np.int32))}
     m13 = torch.tensor(m0, dtype=torch.int32, device=dev)
-    err_q13, g_q13 = _check_k3(q13_slots, si_present, m13, probe["auction"],
-                                  pvalid, "q13")
-    k3["gather/q13"] = (q13_slots, si_present, m13, probe["auction"], pvalid,
-                        err_q13, g_q13)
+    k3["gather/q13"] = _k3_case("q13", q13_slots, si_present, m13,
+                                probe["auction"], pvalid)
     np_, na3 = 320_000, 960_000
     p_span = np_ + 8_192
     p_present = t(rng.random(p_span) < 0.5)
@@ -490,8 +586,20 @@ def phase_kernels(env: dict) -> list[dict]:
     m3 = torch.tensor(m0, dtype=torch.int32, device=dev)
     sellers = t((m0 + rng.integers(-2_000, p_span + 2_000, na3)).astype(np.int32))
     svalid = t(rng.random(na3) < 0.2)   # category = 10 keeps ~1 in 5
-    err_q3, g_q3 = _check_k3(q3_slots, p_present, m3, sellers, svalid, "q3")
-    k3["gather/q3"] = (q3_slots, p_present, m3, sellers, svalid, err_q3, g_q3)
+    a_ts = np.sort(rng.integers(0, 1000, na3)).astype(np.int32)
+    q3_carry = {"a_id": t((m0 + np.arange(na3)).astype(np.int32)),
+                "initial_bid": t(rng.integers(1, 10**6, na3).astype(np.int32)),
+                "reserve": t(rng.integers(1, 10**7, na3).astype(np.int32)),
+                "a_date_time": t(a_ts),
+                "expires": t(a_ts + rng.integers(1, 20_000, na3).astype(np.int32)),
+                "seller": sellers,
+                "category": t(np.where(rng.random(na3) < 0.2, 10, 11)
+                              .astype(np.int32))}
+    k3["gather/q3"] = _k3_case("q3", q3_slots, p_present, m3, sellers, svalid,
+                               dup_expand_capacity(na3), q3_carry)
+    k3.update(_k3_adversarial(q9_slots, fvalid, m, probe["auction"], pvalid,
+                              (q3_slots, p_present, m3, sellers, svalid,
+                               q3_carry), rng))
 
     # timings at the main path's shapes
     rel_idx = (probe["auction"].to(torch.int64) - m0).clamp(0, span)
@@ -546,23 +654,7 @@ def phase_kernels(env: dict) -> list[dict]:
             err=err_b6, main_path=False,
             replaces="flock_tpu/pallas/agg.py:97"),
     }
-    for name, (sc, pr, mm, kk, vv, err, g) in k3.items():
-        col0 = next(iter(sc.values()))
-        idx = (kk.to(torch.int64) - mm.to(torch.int64)).clamp(
-            0, pr.shape[0] - 1)
-        cases[name] = dict(
-            kernel=lambda sc=sc, pr=pr, mm=mm, kk=kk, vv=vv: gather(
-                sc, pr, mm, kk, vv),
-            plain=lambda sc=sc, pr=pr, mm=mm, kk=kk, vv=vv: gather_plain(
-                sc, pr, mm, kk, vv),
-            library=lambda col0=col0, idx=idx: col0[idx],
-            library_call="slots[idx] of one column",
-            device_kernel="gather_kernel",
-            # keys, valid, present and the slot columns in; the gathered
-            # columns and hit out
-            bytes=nbytes(kk, vv, pr, *sc.values()) + nbytes(*g.values())
-            + kk.numel(),
-            err=err)
+    cases.update(k3)
     out = []
     cases.update(_adversarial_cases(slots, present, m, probe, pvalid, pred,
                                     k1_aggs, rng))
@@ -570,13 +662,15 @@ def phase_kernels(env: dict) -> list[dict]:
         # ms / plain_ms / library_ms: CUDA-event medians of the wrapper, of
         # the plain version and of the library call, each the whole call;
         # kernel_device_ms: the profiler's mean device time of the CUDA
-        # kernel alone, device_ops_per_call: the device events (kernels,
-        # copies, fills) per wrapper call; bound_ms: the bytes over the data
-        # sheet's rate, bound_copy_ms: over this run's measured copy rate
+        # kernel alone, host_ms: the whole call less the kernel alone,
+        # device_ops_per_call: the device events (kernels, copies, fills)
+        # per wrapper call; bound_ms: the bytes over the data sheet's rate,
+        # bound_copy_ms: over this run's measured copy rate
         kernel = name.split("/")[0]
         dev_ms, ops = device_profile(c["kernel"], c["device_kernel"])
-        rec = {"case": name, "kernel": kernel,
-               "ms": cuda_ms(c["kernel"]),
+        ms = cuda_ms(c["kernel"])
+        rec = {"case": name, "kernel": kernel, "ms": ms,
+               "host_ms": ms - dev_ms,
                "plain_ms": cuda_ms(c["plain"]),
                "library_ms": cuda_ms(c["library"]),
                "kernel_device_ms": dev_ms, "device_ops_per_call": ops,

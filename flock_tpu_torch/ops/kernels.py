@@ -238,7 +238,10 @@ def lookup_join(build_cols: dict[str, torch.Tensor], build_valid: torch.Tensor,
       on the device (``lax.cond``); here a clean window never runs it.
 
     Returns (out_cols, out_valid, overflow, escape) at ``n`` rows for a
-    slotted or unique build, else at ``max(out_capacity, n)``.  ``fallback``
+    slotted or unique build, else at ``max(out_capacity, n)``.  K3 gathers
+    at most 8 taken columns, and the clean duplicate-faithful pass carries
+    at most 32 other probe columns in the same launch (``gather``'s limits;
+    more raise NotImplementedError, on the CPU too).  ``fallback``
     also aggregates int64 slot columns by scatter, never rebased (the
     ``rebase`` of ``dense_group_aggregate``, whose escape rides along).
     """
@@ -265,19 +268,26 @@ def lookup_join(build_cols: dict[str, torch.Tensor], build_valid: torch.Tensor,
     expand = dup_expand and not build_slotted
     E = n if out_capacity is None or not expand else max(out_capacity, n)
 
+    if not (expand and fallback):
+        # one K3 launch writes the whole output: at E > n (a clean
+        # duplicate-faithful window) it also carries the probe columns a
+        # taken column does not replace and zero-pads everything to E rows
+        taken = {take[src]: slots[src] for src in take_list}
+        carry = None
+        if E > n:
+            carry = {c: col for c, col in probe_cols.items() if c not in taken}
+        res, hit = gather(taken, present, m, pk, probe_valid, out_rows=E,
+                          carry=carry)
+        out = {c: res.get(c, col) for c, col in probe_cols.items()}
+        out.update(res)
+        if expand:
+            return out, hit, ovf_b, any_flag(esc, has_dups)
+        return out, hit, any_flag(ovf_b, has_dups), esc
+
     def pad(a):
         if E == n:
             return a
         return torch.cat([a, torch.zeros(E - n, dtype=a.dtype, device=dev)])
-
-    if not (expand and fallback):
-        gathered, hit = gather({src: slots[src] for src in take_list},
-                               present, m, pk, probe_valid)
-        out = {c: pad(col) for c, col in probe_cols.items()}
-        out.update({take[src]: pad(gathered[src]) for src in take_list})
-        if expand:
-            return out, pad(hit), ovf_b, any_flag(esc, has_dups)
-        return out, hit, any_flag(ovf_b, has_dups), esc
 
     # the fan-out: sort the build side by key, locate each probe key's range
     # with two binary searches, emit the first duplicate in the probe's own

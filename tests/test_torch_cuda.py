@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from flock_tpu_torch import plan
+from flock_tpu_torch.ops import kernels
 from flock_tpu_torch.ops.dense_agg import dense_agg, dense_agg_plain
 from flock_tpu_torch.ops.gather import gather, gather_plain
 from flock_tpu_torch.ops.join_agg import join_agg_plain, join_aggregate
@@ -20,7 +21,7 @@ from flock_tpu_torch.plan import Conj
 from flock_tpu_torch.queries.nexmark import get_query
 from flock_tpu_torch.runtime.stream import StreamDriver, generate_epochs
 from torch_kernel_cases import (K1_AGGS, K1_CASES, K1_TERMS, K2_AGGS,
-                                K2_CASES, k1_case, k2_case)
+                                K2_CASES, K3_CASES, k1_case, k2_case, k3_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -278,6 +279,97 @@ def test_gather_kernel_equals_plain(dev, span, n, m):
     want, whit = gather_plain(slots, present, mm, keys, valid)
     assert torch.equal(ghit, whit) and ghit.any() and not ghit.all()
     _same(got, want)
+
+
+def _k3_args(dev, case, offset=0, span=248_192, n=1_000_000):
+    """K3's adversarial case on ``dev`` at the card's size; ``offset`` > 0
+    puts the probe side (keys, valid, carried columns) off a 16-byte
+    boundary."""
+    slots, present, m, keys, valid, out_rows, carry = k3_case(
+        case, span=span, n=n, seed=len(case))
+    return (_on(dev, slots), _on(dev, present),
+            torch.tensor(int(m), dtype=torch.int32, device=dev),
+            _on(dev, keys, offset), _on(dev, valid, offset), out_rows,
+            None if carry is None else _on(dev, carry, offset))
+
+
+def _k3_same(got, want):
+    (g, ghit), (w, whit) = got, want
+    assert list(g) == list(w)
+    _same(g, w)
+    assert ghit.dtype == torch.bool and torch.equal(ghit, whit)
+
+
+@pytest.mark.parametrize("case", K3_CASES)
+def test_gather_adversarial_equals_plain(dev, case):
+    """Every row of every output bit-equal to the plain version: one hot
+    slot, all misses, keys at the int32 extremes (32-bit wrap), a span of
+    1, ragged and tiny n, 8-byte, mixed and eight columns (the run-time
+    signature), and the carry to E > n rows."""
+    args = _k3_args(dev, case)
+    _k3_same(gather(*args), gather_plain(*args))
+
+
+@pytest.mark.parametrize("case", ["one_slot", "n_5", "n_1003", "mixed",
+                                  "carry", "carry_ragged"])
+def test_gather_vector_and_scalar_paths_agree(dev, case):
+    """Probe columns one element off a 16-byte boundary take the kernel's
+    row-by-row path (and the carry's byte path): the same outputs as the
+    aligned 16-byte path and the plain version."""
+    aligned, shifted = _k3_args(dev, case), _k3_args(dev, case, offset=1)
+    assert shifted[3].data_ptr() % 16 and shifted[4].data_ptr() % 16
+    got = gather(*shifted)
+    _k3_same(got, gather(*aligned))
+    _k3_same(got, gather_plain(*shifted))
+
+
+def test_gather_writes_every_output(dev, monkeypatch):
+    """K3's output buffer (``torch.empty``) holds 0x7f bytes when the kernel
+    starts: the kernel still writes every byte of every output, the padding
+    rows and the carried columns included."""
+    empty = torch.empty
+
+    def stale_empty(*shape, **kw):
+        t = empty(*shape, **kw)
+        t.view(torch.uint8).fill_(0x7f)
+        return t
+
+    for case in ("carry", "carry_ragged", "mixed"):
+        args = _k3_args(dev, case)
+        want = gather_plain(*args)
+        with monkeypatch.context() as mp:
+            mp.setattr(torch, "empty", stale_empty)
+            got = gather(*args)
+        _k3_same(got, want)
+
+
+def test_clean_lookup_join_is_one_gather_on_card(dev, monkeypatch):
+    """A clean duplicate-faithful join (q3's person join) on the card: one
+    K3 launch writes the whole E-row output, no ``torch.cat`` pads it, and
+    every row equals the CPU path's."""
+    slots, present, m, keys, valid, E, carry = k3_case(
+        "carry", span=50_000, n=300_000)
+    ids = (int(m) + np.flatnonzero(present)).astype(np.int32)
+    build = {"p_id": ids, **{k: v[present] for k, v in slots.items()}}
+    take = {k: k for k in slots}
+    runs, cats = [], []
+    for d in (dev, "cpu"):
+        args = (_on(d, build), _on(d, np.ones(len(ids), bool)), "p_id",
+                _on(d, carry), _on(d, valid), "seller", take)
+        if d != "cpu":
+            before = gather.launches
+            with monkeypatch.context() as mp:
+                mp.setattr(torch, "cat", lambda *a, **k: cats.append(1))
+                runs.append(kernels.lookup_join(*args, out_capacity=E))
+            assert gather.launches == before + 1 and not cats
+        else:
+            runs.append(kernels.lookup_join(*args, out_capacity=E))
+    (gout, ghit, _, gesc), (cout, chit, _, cesc) = runs
+    assert not bool(gesc) and not bool(cesc)
+    assert ghit.shape == (E,) and torch.equal(ghit.cpu(), chit) and chit.any()
+    assert list(gout) == list(cout)
+    for k in cout:
+        assert torch.equal(gout[k].cpu(), cout[k]), k
 
 
 def _card_and_cpu(dev, q, seconds, eps, gens):

@@ -1,9 +1,10 @@
-"""Adversarial inputs for kernels K1 (fused join-aggregate) and K2 (dense
-grouped aggregate), numpy arrays made from a seed.  Shared by the CPU tests
-(``test_torch_kernel_cases.py``: the plain versions against flock_tpu) and
-the card tests (``test_torch_cuda.py``: the kernels against their plain
-versions, at sizes past K1's 2048-row tile and 2048-slot window).  Imports
-neither JAX nor torch."""
+"""Adversarial inputs for kernels K1 (fused join-aggregate), K2 (dense
+grouped aggregate) and K3 (probe-side gather), numpy arrays made from a
+seed.  Shared by the CPU tests (``test_torch_kernel_cases.py``,
+``test_torch_gather_cases.py``: the plain versions against flock_tpu and
+numpy) and the card tests (``test_torch_cuda.py``: the kernels against their
+plain versions, at sizes past K1's 2048-row tile and 2048-slot window).
+Imports neither JAX nor torch."""
 
 import numpy as np
 
@@ -100,3 +101,97 @@ def k2_case(name: str, n: int = 8192, cap: int = 4096, seed: int = 0):
     cols = {"v": rng.integers(-(10**9), 10**9, n).astype(np.int32),
             "w": rng.integers(0, 10**6, n).astype(np.int32)}
     return keys.astype(np.int32), valid, cols, cap
+
+
+K3_CASES = (
+    "one_slot",      # every key on one present slot
+    "all_miss",      # every key a miss: below, above the span, absent, invalid
+    "far_above",     # m near INT32_MIN, keys near INT32_MAX
+    "far_below",     # m near INT32_MAX, keys near INT32_MIN: key - m wraps
+                     # into the span in 32 bits, never in 64
+    "span_1",
+    "n_1", "n_3", "n_4", "n_5", "n_1003",   # ragged and tiny quads
+    "wide",          # one 8-byte column
+    "mixed",         # 4- and 8-byte columns: the run-time signature
+    "eight_cols",    # the most columns one launch takes
+    "carry",         # q3's signature (three 4-byte columns) carrying mixed
+                     # widths to E > n rows
+    "carry_ragged",  # mixed columns, n and E not multiples of 4
+)
+# the cases whose columns are 4-byte and whose key - m fits in int32, which
+# the reference's pallas_factored_gather (int32 planes, 32-bit difference)
+# takes
+K3_PALLAS_CASES = ("one_slot", "all_miss", "span_1", "n_1", "n_3", "n_4",
+                   "n_5", "n_1003", "carry")
+I32_MIN, I32_MAX = -(2**31), 2**31 - 1
+
+
+def k3_case(name: str, span: int = 4096, n: int = 8192, seed: int = 0):
+    """(slot_cols, present, m, keys, valid, out_rows, carry): ``out_rows``
+    and ``carry`` are None unless the case carries probe columns."""
+    rng = np.random.default_rng(seed)
+    span = {"span_1": 1}.get(name, span)
+    n = {"n_1": 1, "n_3": 3, "n_4": 4, "n_5": 5, "n_1003": 1003,
+         "carry_ragged": 1003}.get(name, n)
+    # far_below: slots 0..99 hold keys up to I32_MAX, the rest keys past it
+    m = {"far_above": I32_MIN + 7, "far_below": I32_MAX - 99}.get(name, 1000)
+    present = rng.random(span) < 0.8
+    # keys near an advancing frontier, some behind m and past the span
+    rel = np.arange(n, dtype=np.int64) * span // max(n, 1) \
+        + rng.integers(-40, 40, n)
+    if name == "one_slot":
+        rel = np.full(n, span // 3)
+        present[span // 3] = True
+    elif name == "all_miss":
+        r = rng.random(n)
+        rel = np.where(r < 0.4, -rng.integers(1, 10**6, n),
+                       np.where(r < 0.8, span + rng.integers(0, 10**6, n),
+                                rel))
+        present[:] = False
+    elif name == "far_above":
+        # far keys are I32_MAX - j: key - m is ~2^32 in 64 bits, < 0 in 32
+        far = rng.random(n) < 0.5
+        rel = np.where(far, I32_MAX - rng.integers(0, span, n) - m, rel)
+    elif name == "far_below":
+        # far keys are I32_MIN + j: key - m + 2^32 lands in [100, span)
+        far = rng.random(n) < 0.5
+        rel = np.where(far, I32_MIN + rng.integers(0, span - 100, n) - m,
+                       rng.integers(0, 100, n))
+    elif name == "span_1":
+        rel = rng.integers(-1, 2, n)
+        present[0] = True
+    keys = (m + rel).astype(np.int32)
+    valid = (rng.random(n) < 0.9) | (n == 1)
+    if name == "all_miss":
+        valid = rng.random(n) < 0.9
+    i32 = rng.integers(I32_MIN, I32_MAX, span, endpoint=True).astype(np.int32)
+    i64 = rng.integers(-(2**62), 2**62, span).astype(np.int64)
+    if name in ("wide",):
+        slots = {"ts": i64}
+    elif name in ("mixed", "carry_ragged"):
+        slots = {"a": i32, "ts": i64, "f": rng.random(span).astype(np.float32),
+                 "d": rng.random(span)}
+    elif name == "eight_cols":
+        slots = {f"c{j}": (i64 + j if j % 3 == 0 else (i32 ^ j))
+                 for j in range(8)}
+    elif name == "carry":
+        slots = {"name": rng.integers(0, 100, span).astype(np.int32),
+                 "city": rng.integers(0, 10, span).astype(np.int32),
+                 "state": i32}
+    else:
+        slots = {"v": i32}
+    if not name.startswith("carry"):
+        return slots, present, np.int32(m), keys, valid, None, None
+    # the probe columns of a duplicate-faithful join: the key itself and
+    # columns of every element width, padded to dup_expand_capacity(n)
+    carry = {"seller": keys,
+             "t64": rng.integers(-(2**62), 2**62, n).astype(np.int64),
+             "flag": rng.random(n) < 0.5,
+             "i16": rng.integers(-2**15, 2**15, n).astype(np.int16),
+             "u8": rng.integers(0, 256, n).astype(np.uint8),
+             "price": rng.integers(0, 10**8, n).astype(np.int32),
+             "x": rng.random(n)}
+    out_rows = n + max((n // 2 + 127) // 128 * 128, 128)
+    if name == "carry_ragged":
+        out_rows = n + 6
+    return slots, present, np.int32(m), keys, valid, out_rows, carry
