@@ -14,23 +14,33 @@ and the script exits non-zero:
 2. each kernel against its plain PyTorch version on the same CUDA tensors,
    at the shapes of one bench window of the queries that run it (K3 at q3
    as the clean duplicate-faithful join: three columns gathered and seven
-   carried to the fan-out capacity in one launch), and on adversarial
-   shapes off the main path (K1 and K2: every key on one slot, keys K1's
-   window misses, ragged and tiny inputs, no valid row, unaligned columns,
-   K2 on both sides of its shared-memory limit; K3: one hot slot, all
-   misses, uniform keys, keys at the int32 extremes, a span of 1, n in
-   {1, 3, 4, 5, 1003}, unaligned probe columns, 8-byte, mixed and eight
-   columns, a ragged carry), exact equality on every output row, with CUDA
-   event timings of the kernel, the plain version and the nearest single
-   PyTorch call, the host's share of the call, the device operations per
-   wrapper call, and each case's byte bound;
-3. NEXMark q4, q9 and q13 at the bench size (4 s x 4 M events/s, the same
-   generated epochs, element-wise windows) and q3 at its bench size (4 s x
-   16 M events/s), each through ``StreamDriver`` on the card: every kernel
-   of the query's path launched (counts zeroed just before the run, read
-   just after), no fallback, rows equal to the plain CPU path and to an
-   independent numpy version; compute-only and feed-inclusive rows/s and
-   the device's idle share;
+   carried to the fan-out capacity in one launch), and on adversarial shapes off the main path (K1 and K2: every key on one
+   slot, keys K1's window misses, ragged and tiny inputs, no valid row,
+   unaligned columns, K2 on both sides of its shared-memory limit; K3: one
+   hot slot, all misses, uniform keys, keys at the int32 extremes, a span
+   of 1, n in {1, 3, 4, 5, 1003}, unaligned probe columns, 8-byte, mixed
+   and eight columns, a ragged carry), exact equality on every output row,
+   with CUDA event timings of the kernel, the plain version and the nearest
+   single PyTorch call, the host's share of the call, the device operations
+   per wrapper call, and each case's byte bound;
+3. the queries, each through ``StreamDriver.run`` (YSB through ``run_ysb``)
+   on the card: q4, q9, q13, q0, q1, q2, q10 and q2 over row-count windows
+   of 5 M bids at the bench size (4 s x 4 M events/s, element-wise
+   windows, one set of epochs); q3 at 4 s x 16 M events/s; q5 (hopping
+   10/5: two windows), q7 and q8 (tumbling 10 s) and q2 over sliding (4/2)
+   and stagger (3 s, epochs 0, 1 and 5 blanked) windows on 15 s x 4 M
+   events/s; YSB at 10 s x 4 M events/s.  For each: every kernel of the
+   query's path launched (counts zeroed just before the run, read just
+   after), no fallback, no plain kernel version on a card tensor, each
+   epoch staged once (range windows), every window's device columns equal
+   to the plain CPU path's and its rows to an independent numpy version;
+   compute-only (StreamDriver's path from prestaged inputs) and
+   feed-inclusive rows/s and the device's idle share.  Then K2 and K3, as
+   in phase 2, on the tensors the main paths of q7, q5 and YSB gave them
+   in their first window: q7's ~36.8 M bids on one key and the gather of
+   their max back to them, q5's count onto ~37 M slots, YSB's ~40 M
+   events onto 128 campaign slots and the gather from 1,000 campaign
+   slots;
 4. the duplicate configuration (10 s x 350 events/s, 3 generators, one 10 s
    window) for q4, q9 and q3 on the card against numpy — q4 and q9 rerun
    the window with the duplicate-faithful fallback — and q3 over that
@@ -42,6 +52,8 @@ It imports nothing of ``jax`` or ``flock_tpu``.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -60,6 +72,10 @@ PEAK_BYTES_S = 3.35e12
 SEED = 1234
 BENCH_SECONDS, BENCH_EPS = 4, 4_000_000   # bench.py's defaults
 Q3_EPS = 4 * BENCH_EPS                    # bench.py raises q3 to 4x (:322)
+# the windowed queries: 15 s give q5 two hopping windows ([0, 10), [5, 15))
+# and q7/q8 one tumbling window; bench.py runs YSB at 10 s (:315)
+WIN_SECONDS, YSB_SECONDS = 15, 10
+ROWS_N = 5_000_000                        # q2's row-count windows
 
 # kernel → (source, the TPU kernel it replaces)
 KERNELS = {
@@ -70,11 +86,18 @@ KERNELS = {
     "gather": ("flock_tpu_torch/csrc/gather.cu",
                "flock_tpu/pallas/factored.py:555"),
 }
-# the kernels each query's main path must launch
-QUERY_KERNELS = {4: ("join_agg", "dense_agg"),
-                 9: ("join_agg", "dense_agg", "gather"),
-                 13: ("dense_agg", "gather"),
-                 3: ("dense_agg", "gather")}
+# the kernels each run's main path must launch (the bid-only element-wise
+# queries and q2's windows launch none)
+QUERY_KERNELS = {"q4": ("join_agg", "dense_agg"),
+                 "q9": ("join_agg", "dense_agg", "gather"),
+                 "q13": ("dense_agg", "gather"),
+                 "q3": ("dense_agg", "gather"),
+                 "q5": ("dense_agg", "gather"),
+                 "q7": ("dense_agg", "gather"),
+                 "q8": ("dense_agg",),
+                 "ysb": ("dense_agg", "gather"),
+                 "q0": (), "q1": (), "q2": (), "q10": (), "q2-rows": (),
+                 "q2-sliding": (), "q2-stagger": ()}
 
 
 def sh(*cmd: str) -> str:
@@ -115,41 +138,91 @@ def cuda_ms(fn, reps: int = 15, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def profile(fn, tries: int = 3):
-    """Run ``fn`` under torch.profiler; the key averages of its device-side
-    events (kernels, copies, fills).  The host-side operator events are left
-    out: their device time repeats that of the kernels they launched.  A
-    session that records no device event (the profiler drops one now and
-    then over the script's ~45 sessions) is run again, up to ``tries``
-    times."""
+@dataclasses.dataclass
+class DeviceEvents:
+    """One kind of device event (a kernel, copy or fill) over a profiled
+    run of a function: its name, how many times it ran, and their device
+    time in microseconds."""
+    key: str
+    count: int
+    self_device_time_total: float
+
+
+def profile(fn, sessions: int = 3) -> list[DeviceEvents]:
+    """The device-side events (kernels, copies, fills) of one run of
+    ``fn``, from torch.profiler.  Once the port's kernel libraries have
+    launched, the profiler loses the first device event of every session,
+    and at times many more (one session recorded 3 of q7's ~20
+    operations).  So every session starts with a spin kernel of its own,
+    left out of the result, and ``fn`` runs in ``sessions`` sessions: each
+    kind of event counts as often as the most any session recorded it, at
+    its mean device time over all recorded ones.  Counts can still fall
+    short; ``dispatched_ops`` counts exactly.  A session that records no
+    device event at all (now and then one does) is not counted; up to
+    ``3 * sessions`` are run.  The host-side operator events are left out:
+    their device time repeats that of the kernels they launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    for _ in range(tries):
+    most: dict[str, int] = {}
+    seen: dict[str, list] = {}    # key → [events recorded, their us]
+    recorded = 0
+    for _ in range(3 * sessions):
+        if recorded == sessions:
+            break
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
             fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-        if events:
-            return events
-    raise RuntimeError(f"the profiler saw no device event in {tries} tries")
+                  if e.device_type == DeviceType.CUDA
+                  and "spin_kernel" not in e.key]
+        recorded += bool(events)
+        for e in events:
+            most[e.key] = max(most.get(e.key, 0), e.count)
+            acc = seen.setdefault(e.key, [0, 0.0])
+            acc[0] += e.count
+            acc[1] += e.self_device_time_total
+    if not most:
+        raise RuntimeError(f"the profiler saw no device event in "
+                           f"{3 * sessions} sessions")
+    return [DeviceEvents(k, n, n * seen[k][1] / seen[k][0])
+            for k, n in most.items()]
+
+
+def dispatched_ops(fn) -> list[str]:
+    """The ATen operations ``fn`` dispatches, in order (views and other
+    operations that launch nothing included; the port's own kernels, called
+    through ctypes, are not ATen operations): an exact record where the
+    profiler's device events fall short."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    ops = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        fn()
+    return ops
 
 
 def device_profile(fn, kernel: str, reps: int = 10) -> tuple[float, float]:
-    """(mean device ms per call of the CUDA kernels whose name holds
-    ``kernel``, device operations per call — kernels, copies and fills)
-    when ``fn`` runs, from the profiler.  A session that recorded no time
-    for ``kernel`` is run again; raises after three."""
+    """(mean device ms of the CUDA kernels whose name holds ``kernel``,
+    device operations per call — kernels, copies and fills) when ``fn``
+    runs ``reps`` times, from the profiler."""
     fn()
-    for _ in range(3):
-        events = profile(lambda: [fn() for _ in range(reps)])
-        us = sum(e.self_device_time_total for e in events if kernel in e.key)
-        if us:
-            return us / reps / 1e3, sum(e.count for e in events) / reps
-    raise RuntimeError(f"the profiler saw no device time ({kernel})")
+    events = profile(lambda: [fn() for _ in range(reps)])
+    mine = [e for e in events if kernel in e.key]
+    if not mine:
+        raise RuntimeError(f"the profiler saw no device time ({kernel})")
+    return (sum(e.self_device_time_total for e in mine) / 1e3
+            / sum(e.count for e in mine),
+            sum(e.count for e in events) / reps)
 
 
 def nbytes(*tensors) -> int:
@@ -240,10 +313,11 @@ def _check_k1(slots, present, m, probe, pvalid, pred, aggs):
 
 
 def _k3_case(what, slots, present, m, keys, valid, out_rows=None,
-             carry=None, main_path=True) -> dict:
+             carry=None, main_path=True, mixed=True) -> dict:
     """K3 against its plain version on every output row, and its timing
-    case.  A main-path case must hold hits, misses and present keys whose
-    slot is absent.  The library yardstick is ``slots[idx]`` of one column;
+    case.  A ``mixed`` main-path case must hold hits, misses and present
+    keys whose slot is absent (q7's and YSB's joins have no miss and no
+    absent slot).  The library yardstick is ``slots[idx]`` of one column;
     the bytes are every distinct input read once (keys, valid, present, the
     slot and carried columns) and every output written once (gathered,
     carried and hit, at the output rows)."""
@@ -258,7 +332,7 @@ def _k3_case(what, slots, present, m, keys, valid, out_rows=None,
     if not torch.equal(h1, h2):
         raise AssertionError(f"gather {what}: hit differs")
     rel = keys.to(torch.int64) - m.to(torch.int64)
-    if main_path:
+    if main_path and mixed:
         in_span = valid & (rel >= 0) & (rel < present.shape[0])
         absent = in_span & ~present[torch.where(in_span, rel, 0)]
         counts = [int(h1.sum()), int((valid & ~in_span).sum()),
@@ -465,6 +539,83 @@ def _k3_adversarial(q9_slots, fvalid, m, keys, pvalid, q3, rng) -> dict:
     return cases
 
 
+def _slot_index(keys, valid, cap):
+    """K2's slot of every row as int64 (key - the least valid key), with
+    the invalid rows on the spill slot ``cap``: the library calls' index."""
+    k = keys.to(torch.int64)
+    kmin = int(k[valid].min()) if bool(valid.any()) else 0
+    return torch.where(valid, k - kmin, cap).clamp(0, cap)
+
+
+def _windowed_cases(inputs: dict) -> dict:
+    """K2 and K3 on the tensors the windowed queries' main paths gave them
+    (each the first such call of the run, from ``kernel_inputs``), each
+    exact against its plain version: q7's max price over its one key and
+    the gather of that max back to every bid; q5's count per auction onto
+    the window's aggregate capacity; YSB's count per campaign and the
+    gather of ``campaign_id`` from the campaign slots to every view."""
+    from flock_tpu_torch.ops.dense_agg import dense_agg, dense_agg_plain
+
+    cases = {}
+
+    def k2(name, library, library_call):
+        (keys, valid, cols, aggs, cap), _ = inputs[f"dense_agg/{name}"]
+        cols = {c: cols[c] for c, _, _ in aggs if c is not None}
+        err, ovf = _check_k2(keys, valid, cols, aggs, cap)
+        if ovf:
+            raise AssertionError(f"dense_agg {name}: overflowed")
+        idx = _slot_index(keys, valid, cap)
+        cases[f"dense_agg/{name}"] = dict(
+            kernel=lambda: dense_agg(keys, valid, cols, aggs, cap),
+            plain=lambda: dense_agg_plain(keys, valid, cols, aggs, cap),
+            library=library(idx, cols, cap), library_call=library_call,
+            device_kernel="dense_agg_", shape=(
+                f"{keys.numel()} rows ({int(valid.sum())} valid) -> "
+                f"{cap} slots"),
+            bytes=_k2_bytes(keys, valid, cols, aggs, cap), err=err)
+
+    def k3(name):
+        args, kw = inputs[f"gather/{name}"]
+        slots, present, _, keys, valid = args
+        cases[f"gather/{name}"] = dict(
+            _k3_case(name, *args, **kw, mixed=False), shape=(
+                f"{keys.numel()} probes ({int(valid.sum())} valid), "
+                f"{int(present.sum())} of {present.numel()} slots present"))
+
+    def amax(idx, cols, cap):
+        buf = torch.full((cap + 1,), -2**31, dtype=torch.int32,
+                         device=idx.device)
+        return lambda: buf.scatter_reduce_(0, idx, cols["price"], "amax")
+
+    def count(idx, cols, cap):
+        return lambda: torch.bincount(idx, minlength=cap + 1)
+
+    k2("q7_one_key", amax, "scatter_reduce_(amax) of price")
+    k3("q7")
+    k2("q5_count", count, "bincount of key - m")
+    k2("ysb_count", count, "bincount of key - m")
+    k3("ysb")
+    return cases
+
+
+def _agg_names(args) -> list:
+    return [name for _, _, name in args[3]]
+
+
+# the main-path kernel calls each windowed query's kernel cases take their
+# inputs from: case → (wrapper, test of the call's positional arguments)
+WINDOWED_PICKS = {
+    "q5": {"dense_agg/q5_count": ("dense_agg",
+                                  lambda a: _agg_names(a) == ["num"])},
+    "q7": {"dense_agg/q7_one_key": ("dense_agg",
+                                    lambda a: "maxprice" in _agg_names(a)),
+           "gather/q7": ("gather", lambda a: list(a[0]) == ["maxprice"])},
+    "ysb": {"dense_agg/ysb_count": ("dense_agg",
+                                    lambda a: _agg_names(a) == ["count"]),
+            "gather/ysb": ("gather", lambda a: list(a[0]) == ["campaign_id"])},
+}
+
+
 def phase_kernels(env: dict) -> list[dict]:
     """Each kernel against its plain version at one bench window's shapes
     (4 M events/s: ~240 k auctions, ~3.68 M bids; q3 at 16 M events/s:
@@ -655,9 +806,14 @@ def phase_kernels(env: dict) -> list[dict]:
             replaces="flock_tpu/pallas/agg.py:97"),
     }
     cases.update(k3)
-    out = []
     cases.update(_adversarial_cases(slots, present, m, probe, pvalid, pred,
                                     k1_aggs, rng))
+    return time_cases(env, cases)
+
+
+def time_cases(env: dict, cases: dict) -> list[dict]:
+    """Times each case and prints its ``kernel case`` line."""
+    out = []
     for name, c in cases.items():
         # ms / plain_ms / library_ms: CUDA-event medians of the wrapper, of
         # the plain version and of the library call, each the whole call;
@@ -680,6 +836,7 @@ def phase_kernels(env: dict) -> list[dict]:
                "bound_copy_ms": c["bytes"] / env["copy_bytes_per_s"] * 1e3,
                "max_abs_err": c["err"], "exact": c["err"] == 0,
                "main_path": c.get("main_path", True),
+               **({"shape": c["shape"]} if "shape" in c else {}),
                "replaces": c.get("replaces", KERNELS[kernel][1]),
                "source": KERNELS[kernel][0]}
         print("kernel case: " + json.dumps(rec), flush=True)
@@ -790,12 +947,67 @@ def numpy_q3(t: dict) -> dict:
             "state": p["state"][pj], "a_id": a["a_id"][ai]}
 
 
+def numpy_q0(t: dict) -> dict:
+    """Independent q0 and q10: every bid."""
+    return {k: t["bid"][k] for k in ("auction", "bidder", "price",
+                                     "b_date_time")}
+
+
+def numpy_q1(t: dict) -> dict:
+    """Independent q1: every bid, its price times 0.908 in f64."""
+    return dict(numpy_q0(t), price=0.908 * t["bid"]["price"].astype(np.float64))
+
+
+def numpy_q2(t: dict) -> dict:
+    """Independent q2: auction and price of the bids on every 123rd
+    auction."""
+    bid = t["bid"]
+    keep = bid["auction"] % 123 == 0
+    return {"auction": bid["auction"][keep], "price": bid["price"][keep]}
+
+
+def numpy_q5(t: dict) -> dict:
+    """Independent q5: the auctions with the most bids in the window."""
+    ids, counts = np.unique(t["bid"]["auction"], return_counts=True)
+    keep = counts == counts.max() if len(counts) else counts > 0
+    return {"auction": ids[keep], "num": counts[keep]}
+
+
+def numpy_q7(t: dict) -> dict:
+    """Independent q7: the bids at the window's highest price."""
+    bid = t["bid"]
+    keep = bid["price"] == bid["price"].max() if len(bid["price"]) else \
+        np.zeros(0, bool)
+    return {k: bid[k][keep] for k in ("auction", "price", "bidder",
+                                      "b_date_time")}
+
+
+def numpy_q8(t: dict) -> dict:
+    """Independent q8: each person (the greatest name among rows with its
+    id) who sells an auction in the window."""
+    person = t["person"]
+    order, last = _last_of_groups(person["name"], person["p_id"])
+    ids, names = person["p_id"][order][last], person["name"][order][last]
+    keep = np.isin(ids, np.unique(t["auction"]["seller"]))
+    return {"p_id": ids[keep], "name": names[keep]}
+
+
+def numpy_ysb(t: dict) -> dict:
+    """Independent YSB: views counted per campaign (ad // 10)."""
+    ev = t["ad_event"]
+    ids, counts = np.unique(ev["ad_id"][ev["event_type"] == 0] // 10,
+                            return_counts=True)
+    return {"campaign_id": ids, "count": counts}
+
+
 def numpy_query(q: int, tables: dict) -> dict:
     from flock_tpu_torch.runtime.tables import default_side_input
 
     if q == 13:
         return numpy_q13(tables, default_side_input())
-    return {3: numpy_q3, 4: numpy_q4, 9: numpy_q9}[q](tables)
+    return {0: numpy_q0, 1: numpy_q1, 2: numpy_q2, 3: numpy_q3, 4: numpy_q4,
+            5: numpy_q5, 7: numpy_q7, 8: numpy_q8, 9: numpy_q9,
+            10: numpy_q0}[q](tables)
 
 
 def _same_rows(got: dict, want: dict, names, what: str) -> None:
@@ -825,92 +1037,332 @@ def _host(ex, batch) -> dict:
     return {**host, **materialize_columns(ex.spec, host)}
 
 
-def phase_query(q: int, epochs: list, seconds: int, eps: int, gen_s: float,
-                card_line: str) -> dict:
-    """One query at bench size through StreamDriver on the card; returns
-    the launches of every kernel over that run."""
-    from flock_tpu_torch.queries.nexmark import get_query
-    from flock_tpu_torch.runtime.executor import LocalExecutor
-    from flock_tpu_torch.runtime.stream import StreamDriver
-    from flock_tpu_torch.runtime.tables import window_relations
+@contextlib.contextmanager
+def no_plain_on_card():
+    """Fail the run if a plain kernel version (the scatter aggregate that
+    ``kernels.dense_group_aggregate`` takes for shapes K2 does not) sees a
+    card tensor."""
+    from flock_tpu_torch.ops import kernels
 
-    spec = get_query(q)
-    driver = StreamDriver(spec, seconds, device="cuda")
+    plain = kernels.dense_agg_plain
+
+    def guarded(keys, *args, **kw):
+        if keys.is_cuda:
+            raise AssertionError("a card tensor reached dense_agg_plain")
+        return plain(keys, *args, **kw)
+
+    kernels.dense_agg_plain = guarded
+    try:
+        yield
+    finally:
+        kernels.dense_agg_plain = plain
+
+
+@contextlib.contextmanager
+def staging_count():
+    """Count ``Batch.from_numpy`` calls (one per relation staged)."""
+    from flock_tpu_torch.batch import Batch
+
+    calls = []
+    orig = Batch.from_numpy.__func__
+    Batch.from_numpy = classmethod(
+        lambda cls, *a, **k: calls.append(1) or orig(cls, *a, **k))
+    try:
+        yield calls
+    finally:
+        Batch.from_numpy = classmethod(orig)
+
+
+@contextlib.contextmanager
+def executors_made():
+    """Every ``LocalExecutor`` made inside the block, in order."""
+    from flock_tpu_torch.runtime.executor import LocalExecutor
+
+    made = []
+    orig = LocalExecutor.__post_init__
+
+    def keep(self):
+        orig(self)
+        made.append(self)
+
+    LocalExecutor.__post_init__ = keep
+    try:
+        yield made
+    finally:
+        LocalExecutor.__post_init__ = orig
+
+
+@contextlib.contextmanager
+def kernel_inputs(picks: dict, into: dict):
+    """Keep the arguments of the K2 (``dense_agg``) and K3 (``gather``)
+    calls the plan makes inside the block: ``picks`` maps a case name to
+    (wrapper, test of the call's positional arguments), and ``into`` gets,
+    for each case, the (args, kwargs) of the first call its test takes.
+    The wrapper itself runs as it would, and counts its launch as it
+    would."""
+    from flock_tpu_torch.ops import kernels
+
+    wrappers = {n: getattr(kernels, n) for n in ("dense_agg", "gather")}
+
+    def keeping(n):
+        def call(*args, **kw):
+            for case, (w, test) in picks.items():
+                if w == n and case not in into and test(args):
+                    into[case] = (args, kw)
+            return wrappers[n](*args, **kw)
+        return call
+
+    for n in wrappers:
+        setattr(kernels, n, keeping(n))
+    try:
+        yield into
+    finally:
+        for n, f in wrappers.items():
+            setattr(kernels, n, f)
+
+
+@dataclasses.dataclass
+class Path:
+    """How a run's windows reach the executor: ``stage(ex)`` puts the
+    inputs on ``ex``'s device, ``run(ex, staged, i)`` executes window i
+    from them, and ``feed(ex)`` stages and executes in stream order.
+    ``single`` maps window i to its one epoch when every window holds one
+    (element-wise windows), else it is None."""
+    windows: list          # (tag, host relation tables) per window
+    stage: object
+    run: object
+    feed: object
+    single: list | None = None
+
+
+def epoch_path(driver, epochs) -> Path:
+    """The range windows' path: every epoch staged once at StreamDriver's
+    per-epoch capacities, each window through ``execute_epochs``."""
+    caps = driver.epoch_caps(epochs)
+    ranges = [[t for t in rng if t < len(epochs)]
+              for _, rng in driver.epoch_ranges(epochs)]
+
+    def stage_one(ex, e):
+        return {r: ex.stage_chunk(e[r], c) for r, c in caps.items()}
+
+    def run(ex, staged, i, check=True):
+        return ex.execute_epochs([staged[t] for t in ranges[i]],
+                                 check_overflow=check)
+
+    def feed(ex):
+        staged = []
+        for t, e in enumerate(epochs):
+            staged.append(stage_one(ex, e))
+            for i, rng in enumerate(ranges):
+                if rng[-1] == t:
+                    run(ex, staged, i, False)
+
+    single = [rng[0] for rng in ranges] \
+        if all(len(rng) == 1 for rng in ranges) else None
+    return Path(driver.windows(epochs),
+                lambda ex: [stage_one(ex, e) for e in epochs], run, feed,
+                single)
+
+
+def window_path(windows, caps_of) -> Path:
+    """Windows formed on the host (row-count windows, YSB), each staged
+    whole at ``caps_of(tables)``."""
+    def run(ex, staged, i, check=True):
+        return ex.execute_batches(staged[i], check_overflow=check)
+
+    def feed(ex):
+        for _, t in windows:
+            ex.execute_batches(ex.prepare_window(t, caps_of(t)),
+                               check_overflow=False)
+
+    return Path(windows,
+                lambda ex: [ex.prepare_window(t, caps_of(t))
+                            for _, t in windows], run, feed)
+
+
+def phase_query(label: str, spec, main, path_of, numpy_fn, seconds: int,
+                eps: int, gen_s: float, card_line: str,
+                staged_once: int | None = None,
+                inputs: dict | None = None) -> dict:
+    """One run on the card: ``main()`` is the main path (returns the
+    window results; the executor it makes runs the comparisons and the
+    timed passes too), ``path_of()`` the way its windows reach the
+    executor.  Returns the launches of every kernel over the main path's
+    run; ``inputs`` gets the main path's kernel calls that
+    ``WINDOWED_PICKS[label]`` names."""
+    from flock_tpu_torch.runtime.executor import LocalExecutor
 
     # the main path, with every launch counter at zero before it
     wrappers = counters()
     for w in wrappers.values():
         w.launches = 0
-    t0 = time.perf_counter()
-    results = driver.run(epochs)
-    torch.cuda.synchronize()
-    first_run_s = time.perf_counter() - t0
+    picks = WINDOWED_PICKS.get(label, {})
+    kept = {}
+    with no_plain_on_card(), staging_count() as staged_calls, \
+            executors_made() as made, kernel_inputs(picks, kept):
+        t0 = time.perf_counter()
+        results = main()
+        torch.cuda.synchronize()
+        first_run_s = time.perf_counter() - t0
+    if set(kept) != set(picks):
+        raise AssertionError(f"{label}: no main-path call for "
+                             f"{sorted(set(picks) - set(kept))}")
+    if inputs is not None:
+        inputs.update(kept)
+    ex = made[-1]
     launches = {k: w.launches for k, w in wrappers.items()}
-    missing = [k for k in QUERY_KERNELS[q] if not launches[k]]
+    missing = [k for k in QUERY_KERNELS[label] if not launches[k]]
     if missing:
-        raise AssertionError(f"q{q} did not run through {missing}: {launches}")
-    if driver.executor.fallback_runs:
-        raise AssertionError(f"q{q} at the bench size took the fallback")
+        raise AssertionError(f"{label} did not run through {missing}: "
+                             f"{launches}")
+    if any(e.fallback_runs for e in made):
+        raise AssertionError(f"{label} at the bench size took the fallback")
+    if staged_once is not None and len(staged_calls) != staged_once:
+        raise AssertionError(f"{label} staged {len(staged_calls)} batches, "
+                             f"not each epoch once ({staged_once})")
 
-    windows = driver.windows(epochs)
-    caps = driver._fixed_caps(windows, window_relations(spec.relations))
-    gpu = LocalExecutor(spec, device="cuda")
-    cpu = LocalExecutor(spec, device="cpu")
+    path = path_of()
+    if [tag for tag, _ in path.windows] != [r.tag for r in results]:
+        raise AssertionError(f"{label}: window tags differ")
+    cpu = LocalExecutor(spec, device="cpu", side_input=ex.side_input)
+    gpu_in, cpu_in = path.stage(ex), path.stage(cpu)
     out_rows = 0
-    for (tag, tables), res in zip(windows, results):
-        got = _host(gpu, gpu.execute_window(tables, caps))
-        plain = _host(cpu, cpu.execute_window(tables, caps))
-        want = numpy_query(q, tables)
-        _same_rows(got, plain, list(plain), f"q{q} {tag}: card vs CPU plain path")
-        _same_row_set(got, want, list(want), f"q{q} {tag}: card vs numpy")
+    for i, ((tag, tables), res) in enumerate(zip(path.windows, results)):
+        got = _host(ex, path.run(ex, gpu_in, i))
+        plain = _host(cpu, path.run(cpu, cpu_in, i))
+        want = numpy_fn(tables)
+        _same_rows(got, plain, list(plain),
+                   f"{label} {tag}: card vs CPU plain path")
+        _same_row_set(got, want, list(want), f"{label} {tag}: card vs numpy")
         _same_row_set(res.columns, want, spec.schema.names,
-                      f"q{q} {tag}: StreamDriver vs numpy")
+                      f"{label} {tag}: driver vs numpy")
         out_rows += len(res.columns[spec.schema.names[0]])
+    del gpu_in, cpu_in
 
-    rows_in = sum(len(next(iter(t[r].values()))) for _, t in windows for r in t)
-    ex = driver.executor
-    staged = [ex.prepare_window(t, caps) for _, t in windows]
+    rows_in = sum(len(next(iter(t[r].values())))
+                  for _, t in path.windows for r in t)
+    staged = path.stage(ex)
     torch.cuda.synchronize()
+
+    def compute():
+        for i in range(len(path.windows)):
+            path.run(ex, staged, i, False)
+
     best = float("inf")
     for _ in range(5):
         t0 = time.perf_counter()
-        for b in staged:
-            ex.execute_batches(b, check_overflow=False)
+        compute()
         torch.cuda.synchronize()
         best = min(best, time.perf_counter() - t0)
     # where the device time goes in one compute-only pass; the idle share
     # sets the device's busy time against the unprofiled compute time
-    events = profile(lambda: [ex.execute_batches(b, check_overflow=False)
-                              for b in staged])
+    events = profile(compute)
+    wrappers = counters()
+    before = {k: w.launches for k, w in wrappers.items()}
+    aten = dispatched_ops(compute)
+    extra = {"aten_ops": len(aten), "aten_cat": aten.count("cat"),
+             "kernel_launches": sum(w.launches - before[k]
+                                    for k, w in wrappers.items())}
+    if path.single is not None:
+        # a one-epoch window takes its epoch's batches as they stand: the
+        # same operations as execute_batches on them
+        extra["device_ops_execute_batches"] = sum(e.count for e in profile(
+            lambda: [ex.execute_batches(staged[t], check_overflow=False)
+                     for t in path.single]))
+        if dispatched_ops(lambda: [
+                ex.execute_batches(staged[t], check_overflow=False)
+                for t in path.single]) != aten:
+            raise AssertionError(f"{label}: one-epoch windows dispatch "
+                                 "other operations than execute_batches")
+    del staged
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)
-    print(f"q{q} profile: " + json.dumps({
-        "windows": len(staged), "compute_ms": best * 1e3,
+    print(f"{label} profile: " + json.dumps({
+        "windows": len(path.windows), "compute_ms": best * 1e3,
         "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / (best * 1e3),
-        "device_ops": sum(e.count for e in events),
+        "device_ops": sum(e.count for e in events), **extra,
         "top": [[e.key[:80], e.count, e.self_device_time_total / 1e3]
                 for e in top[:10]]}), flush=True)
     best_incl = float("inf")
     for _ in range(3):
         t0 = time.perf_counter()
-        prev = None
-        for _, t in windows:
-            nxt = ex.prepare_window(t, caps)
-            if prev is not None:
-                ex.execute_batches(prev, check_overflow=False)
-            prev = nxt
-        ex.execute_batches(prev, check_overflow=False)
+        path.feed(ex)
         torch.cuda.synchronize()
         best_incl = min(best_incl, time.perf_counter() - t0)
-    rec = {"query": q, "seconds": seconds, "eps": eps, "windows": len(windows),
-           "rows_in": rows_in, "rows_out": out_rows, "gen_s": gen_s,
+    rec = {"query": label, "seconds": seconds, "eps": eps,
+           "windows": len(path.windows), "rows_in": rows_in,
+           "rows_out": out_rows, "gen_s": gen_s,
            "first_run_s": first_run_s, "compute_s": best,
            "rows_per_s": rows_in / best, "feed_incl_s": best_incl,
            "rows_per_s_feed_inclusive": rows_in / best_incl,
            "launches": launches, "fallback_runs": ex.fallback_runs,
-           "card": card_line}
-    print(f"q{q}: " + json.dumps(rec), flush=True)
+           "staged_batches": len(staged_calls), "card": card_line}
+    print(f"{label}: " + json.dumps(rec), flush=True)
     return launches
+
+
+def phase_stream(label: str, spec, epochs: list, seconds: int, eps: int,
+                 gen_s: float, card_line: str, numpy_fn=None,
+                 inputs: dict | None = None) -> dict:
+    """A query through ``StreamDriver.run`` on the card (see
+    ``phase_query``); range windows must stage each epoch once."""
+    from flock_tpu_torch.runtime.stream import StreamDriver
+    from flock_tpu_torch.runtime.executor import _pow2_bucket
+
+    # the windows' shapes come from a driver of their own; the main path's
+    # driver is made inside the run
+    shape = StreamDriver(spec, seconds, device="cpu")
+
+    def main():
+        return StreamDriver(spec, seconds, device="cuda").run(epochs)
+
+    if spec.window[0] == "rows":
+        def path_of():
+            return window_path(shape.windows(epochs), lambda t: {
+                r: _pow2_bucket(len(next(iter(c.values()))))
+                for r, c in t.items()})
+        once = None
+    else:
+        def path_of():
+            return epoch_path(shape, epochs)
+        once = len(epochs) * len(shape.epoch_caps(epochs)) \
+            + ("side_input" in spec.relations)
+    return phase_query(label, spec, main, path_of,
+                       numpy_fn or (lambda t: numpy_query(spec.number, t)),
+                       seconds, eps, gen_s, card_line, once, inputs)
+
+
+def phase_ysb(card_line: str, inputs: dict) -> dict:
+    """YSB at bench.py's size through ``run_ysb`` on the card."""
+    from flock_tpu_torch.datagen.ysb import YsbConfig
+    from flock_tpu_torch.queries.ysb import (campaign_table,
+                                             generate_ysb_epochs, run_ysb,
+                                             ysb_capacities, ysb_query)
+
+    cfg = YsbConfig(seconds=YSB_SECONDS, events_per_second=BENCH_EPS)
+    spec = ysb_query()
+    t0 = time.perf_counter()
+    epochs = generate_ysb_epochs(cfg)
+    gen_s = time.perf_counter() - t0
+    w = spec.window[1]
+    camp = campaign_table(cfg)
+    windows = [(("win", k * w, k * w + w), {
+        "ad_event": {c: np.concatenate([e["ad_event"][c]
+                                        for e in epochs[k * w:(k + 1) * w]])
+                     for c in epochs[0]["ad_event"]},
+        "campaign": camp}) for k in range(cfg.seconds // w)]
+    del epochs
+    caps = ysb_capacities(cfg, w)
+    return phase_query("ysb", spec, lambda: run_ysb(cfg, device="cuda"),
+                       lambda: window_path(windows, lambda t: caps),
+                       numpy_ysb, cfg.seconds, cfg.events_per_second, gen_s,
+                       card_line, inputs=inputs)
+
+
+def _blanked(epochs: list, blank=(0, 1, 5)) -> list:
+    """tests/test_windows.py's stagger input: epochs 0, 1 and 5 empty."""
+    empty = {k: v[:0] for k, v in epochs[0]["bid"].items()}
+    return [{"bid": empty} if t in blank else e for t, e in enumerate(epochs)]
 
 
 def _duplicate_persons(window: dict) -> dict:
@@ -939,7 +1391,7 @@ def phase_duplicates() -> None:
     for q, reruns in ((4, 1), (9, 1), (3, 0)):
         spec = get_query(q)
         driver = StreamDriver(spec, seconds, device="cuda")
-        driver._window_epoch_ranges = lambda: [
+        driver._window_epoch_ranges = lambda occupancy=None: [
             (("win", 0, seconds), list(range(seconds)))]
         results = driver.run(epochs)
         if driver.executor.fallback_runs != reruns:
@@ -966,7 +1418,7 @@ def phase_duplicates() -> None:
           f" rows={len(want['a_id'])} ok", flush=True)
 
 
-def kernels_line(cases: list[dict], launches: dict[int, dict]) -> dict:
+def kernels_line(cases: list[dict], launches: dict[str, dict]) -> dict:
     """One entry per kernel: its cases on the main path summed, its
     launches over every query's main-path run (and per query)."""
     out = []
@@ -976,7 +1428,7 @@ def kernels_line(cases: list[dict], launches: dict[int, dict]) -> dict:
         total = {k: sum(c[k] for c in main)
                  for k in ("ms", "plain_ms", "library_ms", "kernel_device_ms",
                            "bound_ms", "bound_copy_ms")}
-        by_query = {f"q{q}": ln[name] for q, ln in launches.items()}
+        by_query = {label: ln[name] for label, ln in launches.items()}
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_query.values()),
@@ -988,6 +1440,7 @@ def kernels_line(cases: list[dict], launches: dict[int, dict]) -> dict:
 
 
 def main() -> int:
+    from flock_tpu_torch.queries.nexmark import get_query
     from flock_tpu_torch.runtime.stream import generate_epochs
 
     if not torch.cuda.is_available():
@@ -1000,16 +1453,37 @@ def main() -> int:
     t0 = time.perf_counter()
     epochs = generate_epochs(BENCH_SECONDS, BENCH_EPS, 1)
     gen_s = time.perf_counter() - t0
-    for q in (4, 9, 13):
-        launches[q] = phase_query(q, epochs, BENCH_SECONDS, BENCH_EPS, gen_s,
-                                  card_line)
+    for q in (4, 9, 13, 0, 1, 2, 10):
+        launches[f"q{q}"] = phase_stream(f"q{q}", get_query(q), epochs,
+                                         BENCH_SECONDS, BENCH_EPS, gen_s,
+                                         card_line)
+    launches["q2-rows"] = phase_stream(
+        "q2-rows", dataclasses.replace(get_query(2), window=("rows", ROWS_N)),
+        epochs, BENCH_SECONDS, BENCH_EPS, gen_s, card_line)
     del epochs
     t0 = time.perf_counter()
     epochs = generate_epochs(BENCH_SECONDS, Q3_EPS, 1)
     gen_s = time.perf_counter() - t0
-    launches[3] = phase_query(3, epochs, BENCH_SECONDS, Q3_EPS, gen_s,
-                              card_line)
+    launches["q3"] = phase_stream("q3", get_query(3), epochs, BENCH_SECONDS,
+                                  Q3_EPS, gen_s, card_line)
     del epochs
+    t0 = time.perf_counter()
+    epochs = generate_epochs(WIN_SECONDS, BENCH_EPS, 1)
+    gen_s = time.perf_counter() - t0
+    inputs = {}   # the windowed queries' kernel calls, for their cases
+    for q in (5, 7, 8):
+        launches[f"q{q}"] = phase_stream(f"q{q}", get_query(q), epochs,
+                                         WIN_SECONDS, BENCH_EPS, gen_s,
+                                         card_line, inputs=inputs)
+    for label, win, ep in (("q2-sliding", ("sliding", 4, 2), epochs),
+                           ("q2-stagger", ("stagger", 3), _blanked(epochs))):
+        launches[label] = phase_stream(
+            label, dataclasses.replace(get_query(2), window=win), ep,
+            WIN_SECONDS, BENCH_EPS, gen_s, card_line)
+    del epochs
+    launches["ysb"] = phase_ysb(card_line, inputs)
+    cases += time_cases(env, _windowed_cases(inputs))
+    del inputs
     print(json.dumps(kernels_line(cases, launches)), flush=True)
     phase_duplicates()
     print(card_line, flush=True)

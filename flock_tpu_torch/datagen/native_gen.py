@@ -1,8 +1,9 @@
-"""ctypes wrapper over the native NEXMark generator — copy of
-``nexmark_generate_partition`` from ``flock_tpu/datagen/native_gen.py``.
+"""ctypes wrapper over the native NEXMark and YSB generators — copy of
+``nexmark_generate_partition`` and ``ysb_generate_partition`` from
+``flock_tpu/datagen/native_gen.py``.
 
-Produces ``EpochColumns`` directly in columnar (SoA) form, bit-identical to
-the reference package's generator for the same configuration.
+Produces columns directly in columnar (SoA) form, bit-identical to the
+reference package's generators for the same configuration.
 """
 
 from __future__ import annotations
@@ -89,3 +90,27 @@ def nexmark_generate_partition(
             b_date_time=b["ts"][bs:be].copy(),
         ))
     return out
+
+
+def ysb_generate_partition(
+    seconds: int, events_per_second: int, threads: int, index: int,
+    campaigns: int = 100, ads: int = 10,
+) -> dict[str, np.ndarray]:
+    """Generate YSB ad events for one partition: ``ad_id``/``ad_type``/
+    ``event_type`` codes, ``event_time`` (ms) and the ``epoch`` tag, with
+    campaign(ad) = ad // ads."""
+    lib = get_lib()
+    cap = seconds * events_per_second // threads + events_per_second + 64
+    while True:
+        cols = {k: np.empty(cap, dt) for k, dt in (
+            ("ad_id", np.int32), ("ad_type", np.int32),
+            ("event_type", np.int32), ("event_time", np.int64),
+            ("epoch", np.int32))}
+        n = ctypes.c_int64()
+        rc = lib.fg_ysb_generate(
+            seconds, events_per_second, threads, index, campaigns, ads,
+            *[v.ctypes.data for v in cols.values()], cap, ctypes.byref(n))
+        if rc == 0:
+            break
+        cap = n.value + 1
+    return {k: v[:n.value].copy() for k, v in cols.items()}

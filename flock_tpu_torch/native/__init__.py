@@ -1,7 +1,7 @@
 """Build and load the host-side native libraries (C++ → .so via g++, ctypes).
 
 Cut-down copy of ``flock_tpu/native/__init__.py`` for the port: the NEXMark
-generator (``flockgen.cpp``) and the window staging pass (``stage.cpp``),
+and YSB generators (``flockgen.cpp``) and the window staging pass (``stage.cpp``),
 both copies of the reference package's sources.  Libraries compile on first
 use into ``flock_tpu_torch/build/``; a stale library (older than its source)
 rebuilds.
@@ -59,6 +59,8 @@ def get_lib() -> ctypes.CDLL:
             + [vp] * 8 + [i64, i64p]       # auctions
             + [vp] * 5 + [i64, i64p])      # bids
         lib.fg_nexmark_generate.restype = ctypes.c_int
+        lib.fg_ysb_generate.argtypes = [i64] * 6 + [vp] * 5 + [i64, i64p]
+        lib.fg_ysb_generate.restype = ctypes.c_int
         lib._flock_argtypes = True
     return lib
 

@@ -1,6 +1,6 @@
 """Masked columnar operators in plain PyTorch — the counterpart of
-``flock_tpu/ops/kernels.py`` for what q3, q4, q9, q13 and their duplicate
-fallbacks need.
+``flock_tpu/ops/kernels.py`` for what the ported queries and their
+duplicate fallbacks need.
 
 The contract is the reference's: every op is fixed-capacity (``[capacity]``
 tensors plus a ``valid`` mask), and an op that can exceed a static output
@@ -321,3 +321,36 @@ def lookup_join(build_cols: dict[str, torch.Tensor], build_valid: torch.Tensor,
         sb = build_cols[src_name][order]
         out[take[src_name]] = torch.where(is_extra, sb[bsrc], pad(sb[loc]))
     return out, hit0E | is_extra, any_flag(ovf_b, ex_ovf), esc
+
+
+def slot_join(build_cols: dict[str, torch.Tensor], build_valid: torch.Tensor,
+              build_key: str, probe_cols: dict[str, torch.Tensor],
+              probe_valid: torch.Tensor, probe_key: str, take: dict[str, str]):
+    """Join two slot-dense relations (both ``dense_group_aggregate``
+    outputs: slot i holds key ``col[0] + i``, gaps invalid) over the same
+    key domain — q8's new persons ⋈ distinct sellers.  Probe slot i meets
+    build slot ``i + offset``, ``offset`` the difference of the two slot-0
+    keys: the join is one shifted contiguous copy per taken column and a
+    mask AND, no probing.  The offset arithmetic is the reference's (int64
+    difference cast to int32, the start clamped into the zero padding on
+    either side), so sides that do not overlap, or a side with no valid row
+    (its slot-0 key is the sentinel), give only misses.  Returns (out_cols,
+    hit, overflow)."""
+    pcap, bcap = probe_valid.shape[0], build_valid.shape[0]
+    dev = probe_valid.device
+    m_b = build_cols[build_key][0].to(torch.int64)
+    m_p = probe_cols[probe_key][0].to(torch.int64)
+    offset = (m_p - m_b).to(torch.int32)
+    start = (offset + pcap).clamp(0, bcap + pcap).to(torch.int64) - pcap
+    idx = start + torch.arange(pcap, device=dev)
+    inside = (idx >= 0) & (idx < bcap)
+    src = torch.where(inside, idx, 0)
+
+    def shifted(arr):
+        return torch.where(inside, arr[src], arr.new_zeros(()))
+
+    hit = probe_valid & shifted(build_valid)
+    out = dict(probe_cols)
+    for s_name, dst in take.items():
+        out[dst] = shifted(build_cols[s_name])
+    return out, hit, false_flag(dev)

@@ -1,5 +1,5 @@
 """Static operator DAG and its lowering to PyTorch — the counterpart of
-``flock_tpu/plan.py`` for the node kinds q3, q4, q9 and q13 and their
+``flock_tpu/plan.py`` for the node kinds the ported queries and their
 duplicate fallbacks reach (Scan, Filter, Project, Aggregate, Join,
 FusedJoinAggregate).
 
@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from functools import reduce
 from typing import Callable
 
 import torch
@@ -52,8 +53,10 @@ class Conj:
                 raise ValueError(f"unknown comparison {op!r}")
 
     def __call__(self, cols: dict) -> torch.Tensor:
-        masks = [_CMP[op](cols[lhs], cols[rhs]) for lhs, op, rhs in self.terms]
-        return torch.stack(masks).all(dim=0)
+        # one device operation per term and one per AND (a single term is
+        # its own mask)
+        return reduce(torch.logical_and, [_CMP[op](cols[lhs], cols[rhs])
+                                          for lhs, op, rhs in self.terms])
 
 
 @dataclass(frozen=True)
@@ -194,28 +197,44 @@ class Lowered:
 
 
 def lower(node: Node, tables: dict[str, Batch], agg_capacity: int | None = None,
-          fallback: bool = False) -> Lowered:
+          fallback: bool = False, memo: dict | None = None) -> Lowered:
     """Recursively lower a plan over concrete input batches.  ``fallback``
     lowers every fused node as its fallback subtree, fans out every
     duplicate-faithful join and aggregates int64 columns by scatter, never
-    rebased (the escape rerun)."""
+    rebased (the escape rerun).
+
+    A subtree the plan reaches twice is lowered once per ``memo``: q5's
+    per-auction counts feed both sides of its join, and eager execution
+    would count them twice where the reference's compiler merges the two.
+    Entries key on the node's identity and the aggregate capacity and hold
+    the node, so no id is reused while the memo lives."""
+    memo = {} if memo is None else memo
+    key = (id(node), agg_capacity)
+    if key not in memo:
+        memo[key] = (node, _lower_node(node, tables, agg_capacity, fallback,
+                                       memo))
+    return memo[key][1]
+
+
+def _lower_node(node: Node, tables, agg_capacity, fallback: bool,
+                memo: dict) -> Lowered:
     if isinstance(node, Scan):
         b = tables[node.relation]
         f = kernels.false_flag(b.valid.device)
         return Lowered(dict(b.columns), b.valid, f, f)
 
     if isinstance(node, Filter):
-        c = lower(node.child, tables, agg_capacity, fallback)
+        c = lower(node.child, tables, agg_capacity, fallback, memo)
         return Lowered(c.cols, c.valid & node.pred(c.cols), c.overflow, c.escape)
 
     if isinstance(node, Project):
-        c = lower(node.child, tables, agg_capacity, fallback)
+        c = lower(node.child, tables, agg_capacity, fallback, memo)
         out = {name: c.cols[e] if isinstance(e, str) else e(c.cols)
                for name, e in node.exprs}
         return Lowered(out, c.valid, c.overflow, c.escape)
 
     if isinstance(node, Aggregate):
-        c = lower(node.child, tables, agg_capacity, fallback)
+        c = lower(node.child, tables, agg_capacity, fallback, memo)
         cap = node.out_capacity or agg_capacity or c.valid.shape[0]
         cols, valid, ovf, esc = kernels.group_aggregate(
             c.cols, c.valid, list(node.group_keys), list(node.aggs), cap,
@@ -224,8 +243,8 @@ def lower(node: Node, tables: dict[str, Batch], agg_capacity: int | None = None,
                        kernels.any_flag(c.escape, esc))
 
     if isinstance(node, Join):
-        b = lower(node.build, tables, agg_capacity, fallback)
-        p = lower(node.probe, tables, agg_capacity, fallback)
+        b = lower(node.build, tables, agg_capacity, fallback, memo)
+        p = lower(node.probe, tables, agg_capacity, fallback, memo)
         if b.cols[node.build_key].is_floating_point() \
                 or p.cols[node.probe_key].is_floating_point():
             raise NotImplementedError(
@@ -234,15 +253,21 @@ def lower(node: Node, tables: dict[str, Batch], agg_capacity: int | None = None,
         # to its single-key Aggregate, which slots its output too
         b_slotted = _slot_dense(node.build, node.build_key)
         if b_slotted and _slot_dense(node.probe, node.probe_key):
-            raise NotImplementedError(
-                "Join of two slot-dense sides (slot_join) is not ported")
-        exp_cap = None
-        if not node.unique_build and not b_slotted:
-            exp_cap = dup_expand_capacity(p.valid.shape[0])
-        cols, valid, ovf, esc = kernels.lookup_join(
-            b.cols, b.valid, node.build_key, p.cols, p.valid, node.probe_key,
-            dict(node.take), out_capacity=exp_cap, build_slotted=b_slotted,
-            dup_expand=not node.unique_build, fallback=fallback)
+            # both sides are dense-slot aggregates over the same key domain:
+            # the join is a shifted contiguous copy (q8)
+            cols, valid, ovf = kernels.slot_join(
+                b.cols, b.valid, node.build_key, p.cols, p.valid,
+                node.probe_key, dict(node.take))
+            esc = kernels.false_flag(ovf.device)
+        else:
+            exp_cap = None
+            if not node.unique_build and not b_slotted:
+                exp_cap = dup_expand_capacity(p.valid.shape[0])
+            cols, valid, ovf, esc = kernels.lookup_join(
+                b.cols, b.valid, node.build_key, p.cols, p.valid,
+                node.probe_key, dict(node.take), out_capacity=exp_cap,
+                build_slotted=b_slotted, dup_expand=not node.unique_build,
+                fallback=fallback)
         if node.post_filter is not None:
             valid = valid & node.post_filter(cols)
         return Lowered(cols, valid,
@@ -250,7 +275,7 @@ def lower(node: Node, tables: dict[str, Batch], agg_capacity: int | None = None,
                        kernels.any_flag(b.escape, p.escape, esc))
 
     if isinstance(node, FusedJoinAggregate):
-        return _lower_fused(node, tables, agg_capacity, fallback)
+        return _lower_fused(node, tables, agg_capacity, fallback, memo)
 
     raise NotImplementedError(f"plan node {type(node).__name__} is not ported")
 
@@ -322,17 +347,17 @@ def fused_local_pass(node: FusedJoinAggregate, b_cols, b_valid, p_cols,
 
 
 def _lower_fused(node: FusedJoinAggregate, tables, agg_capacity,
-                 fallback: bool) -> Lowered:
+                 fallback: bool, memo: dict) -> Lowered:
     jn = node.join
-    b = lower(jn.build, tables, agg_capacity, fallback)
-    p = lower(jn.probe, tables, agg_capacity, fallback)
+    b = lower(jn.build, tables, agg_capacity, fallback, memo)
+    p = lower(jn.probe, tables, agg_capacity, fallback, memo)
     if fallback or not fused_supported(node, b.cols, p.cols):
         # the original Aggregate(...(Join)) subtree, sized to the fused span
         # (rows are (key, value) pairs either way — slot alignment differs,
         # semantics don't)
         span = b.valid.shape[0] + CONFIG.join_span_margin
         fb_node = dataclasses.replace(node.fallback, out_capacity=span)
-        return lower(fb_node, tables, span, fallback)
+        return lower(fb_node, tables, span, fallback, memo)
     out, valid, ovf_b, esc = fused_local_pass(
         node, b.cols, b.valid, p.cols, p.valid)
     return Lowered(out, valid, kernels.any_flag(b.overflow, p.overflow),
@@ -378,7 +403,16 @@ def fuse_join_aggregates(node: Node) -> Node:
                 k = src
         return k
 
+    # a subtree the plan shares stays one object after the rewrite, so
+    # lower() meets it once (entries hold the node: no id is reused)
+    done: dict[int, tuple] = {}
+
     def rewrite(n: Node) -> Node:
+        if id(n) not in done:
+            done[id(n)] = (n, _rewrite(n))
+        return done[id(n)][1]
+
+    def _rewrite(n: Node) -> Node:
         if isinstance(n, Aggregate) and len(n.group_keys) in (1, 2):
             chain = []
             cur = n.child

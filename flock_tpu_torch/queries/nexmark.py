@@ -1,16 +1,26 @@
 """NEXMark query plans with torch expressions — the counterpart of
-``flock_tpu/queries/nexmark.py`` (``QuerySpec``, ``_winning_bid_interval``,
-q3, q4, q9 and q13; the other queries are later slices of the port).
+``flock_tpu/queries/nexmark.py`` (``QuerySpec``, ``_winning_bid_interval``
+and q0–q5, q7–q10, q13; q6, q11 and q12 are later slices of the port).
 
-Windows are element-wise (one per epoch) for all four, as in the reference
-(main.rs:116-122).
+Window per query, as in the reference (main.rs:116-122): q0–q4, q9, q10
+and q13 element-wise (one window per epoch), q5 hopping (10 s, hop 5 s),
+q7 and q8 tumbling (10 s).
 
+- q0.sql: every bid (pass-through); q10.sql the same columns, projected.
+- q1.sql: every bid with its price in another currency, ``0.908 * price``.
+  The device computes it in f32 and carries the integer price; the sink
+  recomputes the f64 value from it.
+- q2.sql: auction and price of the bids on every 123rd auction.
 - q3.sql: names, cities and states of sellers in Oregon, Idaho or
   California with an auction in category 10 (person ⋈ auction).
 - q4.sql: the average winning price per category, where a bid wins an
   auction when it is the highest bid placed between the auction's start and
   expiry.  The device computes the average in f32 beside the exact integer
   sum and count; the sink recomputes it in f64 from those.
+- q5.sql: the auctions with the most bids in each window.
+- q7.sql: the bids at the window's highest price.
+- q8.sql: the persons who opened an auction in the window (new persons ⋈
+  distinct sellers, both slotted over person ids: ``kernels.slot_join``).
 - q9.sql: the winning bids themselves (every bid whose price equals its
   auction's winning price).
 - q13.sql: every bid joined to a bounded side-input table on its auction id.
@@ -38,7 +48,9 @@ NAME_VOCAB = [f"{f} {l}" for f in FIRST_NAMES for l in LAST_NAMES]
 class QuerySpec:
     number: int
     plan: Node
-    window: tuple  # ("elementwise",) — the only window kind ported so far
+    window: tuple  # ("elementwise",) | ("tumbling", s) | ("hopping", w, h) |
+    #               ("sliding", w, slide) | ("stagger", w) | ("rows", n)
+    #               — see flock_tpu_torch/window.py
     relations: tuple[str, ...]
     schema: Schema  # output schema (column order + dictionaries + ts cols)
 
@@ -54,6 +66,36 @@ def _winning_bid_interval(extra_take: tuple = ()) -> Node:
         post_filter=Conj((("b_date_time", ">=", "a_date_time"),
                           ("b_date_time", "<=", "expires"))),
     )
+
+
+def q0() -> QuerySpec:
+    return QuerySpec(
+        0, Scan("bid"), ("elementwise",), ("bid",),
+        Schema(["auction", "bidder", "price", "b_date_time"],
+               timestamp_cols=("b_date_time",)))
+
+
+def q1() -> QuerySpec:
+    plan = Project(Scan("bid"), (
+        ("auction", "auction"),
+        ("bidder", "bidder"),
+        ("price", lambda c: 0.908 * c["price"].to(torch.float32)),
+        ("price_cents", "price"),   # exact basis for the sink's f64 recompute
+        ("b_date_time", "b_date_time"),
+    ))
+    return QuerySpec(
+        1, plan, ("elementwise",), ("bid",),
+        Schema(["auction", "bidder", "price", "b_date_time"],
+               timestamp_cols=("b_date_time",)))
+
+
+def q2() -> QuerySpec:
+    plan = Project(
+        Filter(Scan("bid"), lambda c: c["auction"] % 123 == 0, "auction%123=0"),
+        (("auction", "auction"), ("price", "price")),
+    )
+    return QuerySpec(2, plan, ("elementwise",), ("bid",),
+                     Schema(["auction", "price"]))
 
 
 def q3() -> QuerySpec:
@@ -105,6 +147,66 @@ def q4() -> QuerySpec:
                      Schema(["category", "avg_final"]))
 
 
+def q5() -> QuerySpec:
+    # the bid count per auction (K2), its max over the constant key __g (K2
+    # again, 8 slots), gathered back to every auction (K3 from that slotted
+    # build) and compared
+    counts = Aggregate(Scan("bid"), group_keys=("auction",),
+                       aggs=((None, "count", "num"),))
+    with_const = Project(counts, (
+        ("auction", "auction"), ("num", "num"),
+        ("__g", lambda c: torch.zeros_like(c["num"])),
+    ))
+    maxn = Aggregate(with_const, group_keys=("__g",),
+                     aggs=(("num", "max", "maxn"),), out_capacity=8)
+    plan = Project(
+        Join(build=maxn, probe=with_const, build_key="__g", probe_key="__g",
+             take=(("maxn", "maxn"),),
+             post_filter=Conj((("num", ">=", "maxn"),))),
+        (("auction", "auction"), ("num", "num")),
+    )
+    return QuerySpec(5, plan, ("hopping", 10, 5), ("bid",),
+                     Schema(["auction", "num"]))
+
+
+def q7() -> QuerySpec:
+    # the max price over one constant key (K2), gathered to every bid (K3)
+    with_const = Project(Scan("bid"), (
+        ("auction", "auction"), ("bidder", "bidder"), ("price", "price"),
+        ("b_date_time", "b_date_time"),
+        ("__g", lambda c: torch.zeros_like(c["price"])),
+    ))
+    maxprice = Aggregate(with_const, group_keys=("__g",),
+                         aggs=(("price", "max", "maxprice"),), out_capacity=8)
+    plan = Project(
+        Join(build=maxprice, probe=with_const, build_key="__g",
+             probe_key="__g", take=(("maxprice", "maxprice"),),
+             post_filter=Conj((("price", "==", "maxprice"),))),
+        (("auction", "auction"), ("price", "price"), ("bidder", "bidder"),
+         ("b_date_time", "b_date_time")),
+    )
+    return QuerySpec(7, plan, ("tumbling", 10), ("bid",),
+                     Schema(["auction", "price", "bidder", "b_date_time"],
+                            timestamp_cols=("b_date_time",)))
+
+
+def q8() -> QuerySpec:
+    # GROUP BY p_id, name ≡ GROUP BY p_id with name carried (dependent col).
+    # Both aggregates slot over person ids, so the join lowers to the
+    # shifted copy of kernels.slot_join
+    people = Aggregate(Scan("person"), group_keys=("p_id",),
+                       aggs=(("name", "max", "name"),))
+    sellers = Aggregate(Scan("auction"), group_keys=("seller",), aggs=())
+    plan = Project(
+        Join(build=people, probe=sellers, build_key="p_id", probe_key="seller",
+             take=(("name", "name"),)),
+        (("p_id", lambda c: c["seller"]), ("name", "name")),
+    )
+    return QuerySpec(8, plan, ("tumbling", 10), ("person", "auction"),
+                     Schema(["p_id", "name"],
+                            dictionaries={"name": NAME_VOCAB}))
+
+
 def q9() -> QuerySpec:
     # the fused winning-bid pass slots its output by auction id, so the second
     # join reuses those slots as its build side (kernels.lookup_join
@@ -127,6 +229,16 @@ def q9() -> QuerySpec:
                             timestamp_cols=("b_date_time",)))
 
 
+def q10() -> QuerySpec:
+    plan = Project(Scan("bid"), (
+        ("auction", "auction"), ("bidder", "bidder"), ("price", "price"),
+        ("b_date_time", "b_date_time"),
+    ))
+    return QuerySpec(10, plan, ("elementwise",), ("bid",),
+                     Schema(["auction", "bidder", "price", "b_date_time"],
+                            timestamp_cols=("b_date_time",)))
+
+
 def q13() -> QuerySpec:
     # q13.sql joins ON auction = key directly.  side_input is a bounded
     # (key int32, value int32) table the runtime stages once per run
@@ -144,7 +256,8 @@ def q13() -> QuerySpec:
                              "value"], timestamp_cols=("b_date_time",)))
 
 
-QUERIES = {3: q3, 4: q4, 9: q9, 13: q13}
+QUERIES = {0: q0, 1: q1, 2: q2, 3: q3, 4: q4, 5: q5, 7: q7, 8: q8, 9: q9,
+           10: q10, 13: q13}
 
 
 def get_query(n: int) -> QuerySpec:

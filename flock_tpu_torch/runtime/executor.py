@@ -1,15 +1,21 @@
-"""Single-device executor — the counterpart of ``LocalExecutor`` and
-``materialize_columns`` in ``flock_tpu/runtime/executor.py``.
+"""Single-device executor — the counterpart of ``LocalExecutor``,
+``_pow2_bucket`` and ``materialize_columns`` in
+``flock_tpu/runtime/executor.py``.
 
 Host columns → fixed-capacity device Batches → the plan run eagerly on the
 device → host materialization with timestamp restore and the exact f64 sink
-columns.  Static relations (q13's ``side_input``) are staged on the device
-once and merged into every window's tables, as the reference hands its
-``static_tables`` to ``execute_epochs``.  Each window reads its overflow
-and escape flags in one host sync; an escape (duplicate build keys, slot
-overflow in a fused pass, or an int64 column too wide to rebase to int32)
-reruns the plan with the duplicate-faithful fallback and the unrebased
-scatter, and is counted in ``fallback_runs``.
+columns.  A window is either one set of Batches (``execute_batches``) or a
+list of per-epoch Batches staged once and concatenated on the device
+(``execute_epochs``, the range windows' path).  Static relations (q13's
+``side_input``) are staged on the device once (``statics()``) and merged
+into every window's tables.  Each window reads its overflow and escape flags in one
+host sync; an escape (duplicate build keys, slot overflow in a fused pass,
+or an int64 column too wide to rebase to int32) reruns the plan with the
+duplicate-faithful fallback and the unrebased scatter, and is counted in
+``fallback_runs``.
+
+``execute_stacked``, ``execute_session_tables``, ``execute_consts`` and the
+session state are later slices of the port.
 """
 
 from __future__ import annotations
@@ -30,6 +36,15 @@ from flock_tpu_torch.runtime.tables import default_side_input, window_relations
 class OverflowError(RuntimeError):
     """A static output capacity was exceeded (the analogue of Flock's payload
     size guards); retry with larger capacities."""
+
+
+def _pow2_bucket(n: int) -> int:
+    """Power-of-two capacity bucket (at least 128): windows of varying row
+    counts share a handful of capacities."""
+    c = 128
+    while c < n:
+        c *= 2
+    return c
 
 
 @dataclass
@@ -75,7 +90,43 @@ class LocalExecutor:
         agg_cap = self.agg_capacity or (
             max(batches[r].capacity for r in window_relations(batches))
             + CONFIG.agg_span_margin)
-        tables = {**self.statics(), **batches}
+        return self._run({**self.statics(), **batches}, agg_cap,
+                         check_overflow, lambda: "caps={}".format(tuple(
+                             sorted((r, b.capacity)
+                                    for r, b in batches.items()))))
+
+    def execute_epochs(self, epoch_tables: list[dict[str, Batch]],
+                       check_overflow: bool = True) -> Batch:
+        """Run the plan over a window formed from device-resident per-epoch
+        Batches of equal capacities: each relation's columns and ``valid``
+        concatenate on the device (one ``torch.cat`` each), a one-epoch
+        window takes its epoch's Batches as they stand, and the executor's
+        ``statics()`` join them.  The aggregate capacity is the
+        reference's: epochs × the largest per-epoch capacity + the span
+        margin, what ``execute_batches`` computes on the concatenated
+        window."""
+        caps = tuple(sorted(
+            (rel, b.capacity) for rel, b in epoch_tables[0].items()))
+        agg_cap = self.agg_capacity or (
+            len(epoch_tables) * max(c for _, c in caps)
+            + CONFIG.agg_span_margin)
+        if len(epoch_tables) == 1:
+            merged = dict(epoch_tables[0])
+        else:
+            merged = {rel: Batch(
+                {c: torch.cat([et[rel].columns[c] for et in epoch_tables])
+                 for c in b.columns},
+                torch.cat([et[rel].valid for et in epoch_tables]))
+                for rel, b in epoch_tables[0].items()}
+        tables = {**self.statics(), **merged}
+        return self._run(tables, agg_cap, check_overflow,
+                         lambda: f"w={len(epoch_tables)}, caps={caps}")
+
+    def _run(self, tables: dict[str, Batch], agg_cap: int,
+             check_overflow: bool, what) -> Batch:
+        """The plan over one window's tables, with the overflow and escape
+        flags read in one host sync and the fallback rerun on an escape;
+        ``what()`` describes the window's capacities for an overflow."""
         fn = compile_plan(self.spec.plan, agg_cap)
         out, overflow, escape = fn(tables)
         overflow, escape = torch.stack([overflow, escape]).tolist()
@@ -84,10 +135,9 @@ class LocalExecutor:
             out, overflow, _ = fn(tables, fallback=True)
             overflow = bool(overflow)
         if check_overflow and overflow:
-            caps = tuple(sorted((r, b.capacity) for r, b in batches.items()))
             raise OverflowError(
                 f"q{self.spec.number}: static capacity exceeded "
-                f"(caps={caps}, agg={agg_cap})")
+                f"({what()}, agg={agg_cap})")
         return out
 
     def execute_window(self, tables: dict[str, dict[str, np.ndarray]],
@@ -96,6 +146,18 @@ class LocalExecutor:
         device output Batch (padded); raises OverflowError when a static
         capacity was exceeded."""
         return self.execute_batches(self.prepare_window(tables, capacities))
+
+    def stage_chunk(self, cols: dict[str, np.ndarray],
+                    capacity: int) -> Batch:
+        """One epoch's columns → a device-resident Batch of ``capacity``
+        rows."""
+        return Batch.from_numpy(cols, capacity, self.device)
+
+    def _driving_relation(self) -> str:
+        rels = window_relations(self.spec.relations)
+        if len(rels) != 1:
+            raise ValueError("chunked execution needs one driving relation")
+        return rels[0]
 
     def materialize(self, out: Batch) -> dict[str, np.ndarray]:
         return materialize_columns(self.spec, out.to_numpy())
@@ -118,7 +180,10 @@ def materialize_columns(spec: QuerySpec, host: dict[str, np.ndarray]
                 v = a * host[b].astype(np.float64)
             elif kind == "div":
                 v = host[a].astype(np.float64) / np.maximum(host[b], 1)
-        # q4's hand-built recipe (as in the reference)
+        # the hand-built queries' recipes (as in the reference): q1's money
+        # column from its cents, q4's average from its exact sum and count
+        elif name == "price" and "price_cents" in host:
+            v = 0.908 * host["price_cents"].astype(np.float64)
         elif name == "avg_final" and "sum_final" in host:
             v = host["sum_final"].astype(np.float64) / host["cnt"]
         result[name] = v

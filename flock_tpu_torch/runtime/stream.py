@@ -1,9 +1,15 @@
-"""Stream driver — the counterpart of ``flock_tpu/runtime/stream.py``, cut
-down to what the q3/q4/q9/q13 slices need: ``generate_epochs`` and a
-``StreamDriver`` for element-wise windows (one window per epoch,
-elementwise.rs in the reference) with the overflow widen-and-retry of
-``_execute_all``, and q13's side input staged once per driver.  Other window
-kinds raise.
+"""Stream driver — the counterpart of ``flock_tpu/runtime/stream.py``:
+``generate_epochs`` and a ``StreamDriver`` for the range windows
+(element-wise, tumbling, hopping, sliding, stagger) and row-count windows,
+with q13's side input staged once per driver.
+
+Range windows stage every epoch on the device once, at uniform per-epoch
+capacities, and concatenate a window's epochs on the device
+(``LocalExecutor.execute_epochs``): overlapping hopping and sliding windows
+reuse their epochs without another transfer.  On overflow the per-epoch
+capacities double, every epoch is staged again and the window retries.
+Row-count windows pack the driving relation's rows on the host.  Session
+and global windows are later slices of the port.
 """
 
 from __future__ import annotations
@@ -12,15 +18,21 @@ from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
-from flock_tpu_torch.batch import round_up
+import numpy as np
+
+from flock_tpu_torch.batch import Batch, round_up
 from flock_tpu_torch.config import CONFIG
 from flock_tpu_torch.datagen.native_gen import nexmark_generate_partition
 from flock_tpu_torch.datagen.nexmark import NexmarkConfig
 from flock_tpu_torch.queries.nexmark import QuerySpec, get_query
-from flock_tpu_torch.runtime.executor import LocalExecutor, OverflowError
+from flock_tpu_torch.runtime.executor import (LocalExecutor, OverflowError,
+                                              _pow2_bucket)
 from flock_tpu_torch.runtime.tables import (concat_relations,
                                             epoch_to_relations,
                                             window_relations)
+
+# widen-and-retry budget of one window
+_WIDENS = 5
 
 
 def generate_epochs(seconds: int, events_per_second: int, generators: int = 1
@@ -50,6 +62,10 @@ class WindowResult:
     columns: dict       # materialized output columns (schema order)
 
 
+def _rows(cols: dict) -> int:
+    return len(next(iter(cols.values()))) if cols else 0
+
+
 class StreamDriver:
     def __init__(self, spec: QuerySpec, seconds: int,
                  side_input: dict | None = None,
@@ -58,56 +74,176 @@ class StreamDriver:
         self.seconds = seconds
         self.executor = LocalExecutor(spec, agg_capacity, device, side_input)
 
-    def _window_epoch_ranges(self):
-        """Window tag → epoch list (element-wise windows only)."""
+    # -- window slicing -------------------------------------------------------
+
+    def _window_epoch_ranges(self, occupancy: list[bool] | None = None):
+        """Window tag → epoch list, for the range-based kinds.
+
+        ``occupancy`` (per-epoch has-data flags) is required only for stagger
+        windows, whose anchors are data-dependent (window.rs:104-110 — a
+        window opens at the first event after the previous one closes)."""
         kind = self.spec.window[0]
-        if kind != "elementwise":
-            raise NotImplementedError(f"{kind} windows are not ported")
-        return [(("epoch", t), [t]) for t in range(self.seconds)]
+        s = self.seconds
+        if kind == "elementwise":
+            return [(("epoch", t), [t]) for t in range(s)]
+        if kind == "tumbling":
+            w = self.spec.window[1]
+            return [(("win", k * w, k * w + w), list(range(k * w, k * w + w)))
+                    for k in range(s // w)]
+        if kind == "hopping":
+            w, h = self.spec.window[1], self.spec.window[2]
+            return [(("win", t, t + w), list(range(t, t + w)))
+                    for t in range(0, s, h) if t + w <= s]
+        if kind == "sliding":
+            # window.rs:94-97: emit at every slide point, covering the
+            # trailing w seconds (leading windows are partial)
+            w, sl = self.spec.window[1], self.spec.window[2]
+            return [(("win", max(0, t - w), t), list(range(max(0, t - w), t)))
+                    for t in range(sl, s + 1, sl)]
+        if kind == "stagger":
+            # window.rs:104-110: first-event-anchored w-second windows
+            w = self.spec.window[1]
+            if occupancy is None:
+                raise ValueError("stagger windows need per-epoch occupancy")
+            out, t = [], 0
+            while t < s:
+                if occupancy[t]:
+                    out.append((("win", t, t + w),
+                                list(range(t, min(t + w, s)))))
+                    t += w
+                else:
+                    t += 1
+            return out
+        raise ValueError(kind)
+
+    @staticmethod
+    def _epoch_rows(tables: dict) -> int:
+        return sum(_rows(cols) for cols in tables.values())
+
+    def epoch_ranges(self, epochs: list[dict]) -> list[tuple]:
+        """(tag, epoch list) of every range window over ``epochs``, with the
+        per-epoch occupancy stagger windows anchor on."""
+        rels = window_relations(self.spec.relations)
+        occupancy = [self._epoch_rows({r: e.get(r, {}) for r in rels}) > 0
+                     for e in epochs]
+        return self._window_epoch_ranges(occupancy)
 
     def windows(self, epochs: list[dict]) -> list[tuple]:
-        """(tag, relation tables) for every window of the stream; the
-        static side input is the executor's, not a window's."""
+        """(tag, host relation tables) for every window of the stream, as the
+        driver forms them; the static side input is the executor's, not a
+        window's."""
+        if self.spec.window[0] == "rows":
+            return list(self._row_windows(epochs))
+        rels = window_relations(self.spec.relations)
         return [(tag, concat_relations([epochs[t] for t in rng
-                                        if t < len(epochs)],
-                                       window_relations(self.spec.relations)))
-                for tag, rng in self._window_epoch_ranges()]
+                                        if t < len(epochs)], rels))
+                for tag, rng in self.epoch_ranges(epochs)]
+
+    # -- execution ------------------------------------------------------------
 
     def run(self, epochs: list[dict]) -> list[WindowResult]:
-        return self._execute_all(self.windows(epochs))
+        kind = self.spec.window[0]
+        if kind in ("session", "global"):
+            raise NotImplementedError(f"{kind} windows are not ported yet")
+        if kind == "rows":
+            return self._run_rows(epochs)
+        return self._run_ranges(epochs)
 
-    def _fixed_caps(self, windows, relations) -> dict[str, int]:
-        caps = {}
-        for rel in relations:
-            m = 1
-            for _, tables in windows:
-                cols = tables.get(rel)
-                if cols:
-                    m = max(m, len(next(iter(cols.values()))))
-            caps[rel] = max(round_up(m), 128)
-        return caps
+    def epoch_caps(self, epochs: list[dict]) -> dict[str, int]:
+        """Uniform per-epoch capacities: each window relation's largest
+        epoch, rounded up (at least 128 rows)."""
+        return {rel: max(round_up(max((_rows(e[rel]) for e in epochs
+                                       if rel in e and e[rel]), default=1)),
+                         128)
+                for rel in window_relations(self.spec.relations)}
 
-    def _execute_all(self, windows) -> list[WindowResult]:
-        """Run every window with one capacity signature.  On overflow (static
-        buffers too small — a wide key span, or join fan-out extras from
-        duplicate build keys) the aggregate capacity quadruples, relation
-        capacities double, and the window retries."""
-        caps = self._fixed_caps(windows, list({r for _, t in windows for r in t}))
+    def stage_epochs(self, epochs: list[dict], caps: dict[str, int]
+                     ) -> list[dict[str, Batch]]:
+        """Every epoch's window relations on the device, once each."""
+        return [{rel: self.executor.stage_chunk(e[rel], cap)
+                 for rel, cap in caps.items()} for e in epochs]
+
+    def _run_ranges(self, epochs) -> list[WindowResult]:
+        """Stage each epoch on the device ONCE; windows concatenate there
+        (``LocalExecutor.execute_epochs``), so hopping windows reuse their
+        overlapping epochs without another transfer."""
+        caps = self.epoch_caps(epochs)
+        staged = self.stage_epochs(epochs, caps)
         out = []
-        for tag, tables in windows:
-            for attempt in range(6):
-                try:
-                    b = self.executor.execute_window(tables, caps)
-                    break
-                except OverflowError:
-                    if attempt == 5:
-                        raise
-                    base = self.executor.agg_capacity or (
-                        max(caps.values()) + CONFIG.agg_span_margin)
-                    self.executor.agg_capacity = base * 4
-                    caps = {r: c * 2 for r, c in caps.items()}
+        ranges = self.epoch_ranges(epochs)
+        widx = attempt = 0
+        while widx < len(ranges):
+            tag, rng = ranges[widx]
+            ets = [staged[t] for t in rng if t < len(staged)]
+            try:
+                b = self.executor.execute_epochs(ets)
+            except OverflowError:
+                # static buffers too small (wide key span, or join fan-out
+                # extras from duplicate build keys): double the per-epoch
+                # capacities, stage again, retry the window
+                attempt += 1
+                if attempt > _WIDENS:
+                    raise
+                caps = {r: c * 2 for r, c in caps.items()}
+                staged = self.stage_epochs(epochs, caps)
+                continue
             out.append(WindowResult(tag, self.executor.materialize(b)))
+            widx += 1
+            attempt = 0   # the widen budget is per window
         return out
+
+    def _execute_retry(self, tag, tables, caps) -> WindowResult:
+        """One window from host tables with the overflow widen-and-retry:
+        the aggregate capacity quadruples, relation capacities double."""
+        for attempt in range(_WIDENS + 1):
+            try:
+                b = self.executor.execute_window(tables, caps)
+                break
+            except OverflowError:
+                if attempt == _WIDENS:
+                    raise
+                base = self.executor.agg_capacity or (
+                    max(caps.values()) + CONFIG.agg_span_margin)
+                self.executor.agg_capacity = base * 4
+                caps = {r: c * 2 for r, c in caps.items()}
+        return WindowResult(tag, self.executor.materialize(b))
+
+    # -- row-count windows (Schedule::Rows, window.rs:75-77) -------------------
+
+    def _row_windows(self, epochs):
+        """(tag, tables) of the row-count windows: the driving relation's
+        rows pack into consecutive windows of exactly n rows; the remainder
+        flushes at stream end.  Host state is bounded by one window's
+        rows."""
+        n = self.spec.window[1]
+        rel = self.executor._driving_relation()
+        pending: list[dict] = []
+        have = widx = 0
+        for tables in epochs:
+            cols = tables.get(rel)
+            if not _rows(cols):
+                continue
+            pending.append(dict(cols))
+            have += _rows(cols)
+            while have >= n:
+                joined = {k: np.concatenate([p[k] for p in pending])
+                          for k in pending[0]}
+                yield ("rows", widx), {rel: {k: v[:n]
+                                             for k, v in joined.items()}}
+                widx += 1
+                have -= n
+                pending = [{k: v[n:] for k, v in joined.items()}] \
+                    if have else []
+        if have:
+            yield ("rows", widx), {rel: {k: np.concatenate([p[k] for p in
+                                                            pending])
+                                         for k in pending[0]}}
+
+    def _run_rows(self, epochs) -> list[WindowResult]:
+        return [self._execute_retry(
+                    tag, tables,
+                    {r: _pow2_bucket(_rows(c)) for r, c in tables.items()})
+                for tag, tables in self._row_windows(epochs)]
 
 
 def run_nexmark(query: int, seconds: int = 2, events_per_second: int = 1000,

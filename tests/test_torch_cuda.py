@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions on the card, and the
-q3, q4, q9 and q13 slices on the card against the CPU path.  Skipped without
-a CUDA card.
+ported queries and windows on the card against the CPU path.  Skipped
+without a CUDA card.
 
 This file imports only ``flock_tpu_torch`` (no JAX), so it runs on a machine
 without JAX; there, skip this directory's conftest (it configures JAX):
@@ -18,7 +18,9 @@ from flock_tpu_torch.ops.dense_agg import dense_agg, dense_agg_plain
 from flock_tpu_torch.ops.gather import gather, gather_plain
 from flock_tpu_torch.ops.join_agg import join_agg_plain, join_aggregate
 from flock_tpu_torch.plan import Conj
+from flock_tpu_torch.datagen.ysb import YsbConfig
 from flock_tpu_torch.queries.nexmark import get_query
+from flock_tpu_torch.queries.ysb import run_ysb
 from flock_tpu_torch.runtime.stream import StreamDriver, generate_epochs
 from torch_kernel_cases import (K1_AGGS, K1_CASES, K1_TERMS, K2_AGGS,
                                 K2_CASES, K3_CASES, k1_case, k2_case, k3_case)
@@ -378,7 +380,7 @@ def _card_and_cpu(dev, q, seconds, eps, gens):
     for device in (dev, "cpu"):
         driver = StreamDriver(get_query(q), seconds, device=device)
         if gens > 1:
-            driver._window_epoch_ranges = lambda: [
+            driver._window_epoch_ranges = lambda occupancy=None: [
                 (("win", 0, seconds), list(range(seconds)))]
         runs.append((driver.run(epochs), driver.executor.fallback_runs))
     (gpu, gpu_fb), (cpu, cpu_fb) = runs
@@ -403,3 +405,99 @@ def test_lookup_join_queries_on_the_card_equal_cpu(dev, q, seconds, eps, gens,
     q3's person join and q13's side-input join slot with K2 first.  Only
     q9's G=3 window holds duplicate build keys (auction ids)."""
     assert _card_and_cpu(dev, q, seconds, eps, gens) == reruns
+
+
+@pytest.mark.parametrize("n", [1, 1003, 2_000_000])
+def test_dense_agg_one_hot_key_equals_plain(dev, n):
+    """Every row on one key (q7's max price, q5's max count over the
+    constant ``__g``): the warp combine folds whole warps onto one slot;
+    count and max stay exact."""
+    rng = np.random.default_rng(n)
+    keys = torch.zeros(n, dtype=torch.int32, device=dev)
+    valid = _on(dev, rng.random(n) < 0.95)
+    cols = {"v": _on(dev, rng.integers(-(10**9), 10**9, n).astype(np.int32))}
+    aggs = [("v", "max", "mx"), (None, "count", "c"), (None, "dups", "d")]
+    got, gvalid, ovf = dense_agg(keys, valid, cols, aggs, 8)
+    want, wvalid, wovf = dense_agg_plain(keys, valid, cols, aggs, 8)
+    _same(got, want)
+    assert torch.equal(gvalid, wvalid) and not bool(ovf) and not bool(wovf)
+    assert int(got["c"][0]) == int(valid.sum())
+
+
+@pytest.mark.parametrize("cap", [128, 300_000])
+def test_dense_agg_without_aggregates_equals_plain(dev, cap):
+    """``aggs=()`` (q8's distinct sellers): the packed argument array is
+    empty; slot keys and validity still come out."""
+    rng = np.random.default_rng(cap)
+    n = 400_000
+    keys = _on(dev, rng.integers(7, 7 + cap, n).astype(np.int32))
+    valid = _on(dev, rng.random(n) < 0.8)
+    got, gvalid, ovf = dense_agg(keys, valid, {}, [], cap)
+    want, wvalid, wovf = dense_agg_plain(keys, valid, {}, [], cap)
+    _same(got, want)
+    assert list(got) == ["__key"]
+    assert torch.equal(gvalid, wvalid) and bool(ovf) == bool(wovf)
+
+
+def test_gather_every_probe_on_one_slot(dev):
+    """q7's join: 8 slots, one present, every probe key on it."""
+    rng = np.random.default_rng(7)
+    n = 3_000_000
+    slots = {"maxprice": _on(dev, rng.integers(0, 10**8, 8).astype(np.int32))}
+    present = _on(dev, np.arange(8) == 0)
+    m = torch.zeros((), dtype=torch.int32, device=dev)
+    keys = torch.zeros(n, dtype=torch.int32, device=dev)
+    valid = _on(dev, rng.random(n) < 0.9)
+    got = gather(slots, present, m, keys, valid)
+    _k3_same(got, gather_plain(slots, present, m, keys, valid))
+    assert torch.equal(got[1], valid)
+
+
+def test_execute_epochs_on_the_card_equals_cpu(dev):
+    """q5's hopping windows through ``execute_epochs`` (the epochs
+    concatenated on the device): the card's device output equals the CPU
+    path's in capacity, validity and every valid row."""
+    epochs = generate_epochs(15, 20_000, 1)
+    outs = []
+    for device in (dev, "cpu"):
+        driver = StreamDriver(get_query(5), 15, device=device)
+        staged = driver.stage_epochs(epochs, driver.epoch_caps(epochs))
+        outs.append([driver.executor.execute_epochs([staged[t] for t in rng])
+                     for _, rng in driver.epoch_ranges(epochs)])
+    assert len(outs[0]) == 2
+    for g, c in zip(*outs):
+        assert g.capacity == c.capacity and torch.equal(g.valid.cpu(), c.valid)
+        assert bool(c.valid.any())
+        for name, col in c.columns.items():
+            assert torch.equal(g.columns[name].cpu()[c.valid], col[c.valid])
+
+
+@pytest.mark.parametrize("q,win", [(5, None), (7, None), (8, None),
+                                   (0, None), (1, None), (10, None),
+                                   (2, ("sliding", 4, 2)), (2, ("stagger", 3)),
+                                   (2, ("rows", 50_000))])
+def test_windowed_queries_on_the_card_equal_cpu(dev, q, win):
+    """Every new query and window kind through ``StreamDriver.run`` on the
+    card: the same sink rows as the CPU path, no fallback."""
+    import dataclasses
+
+    epochs = generate_epochs(15, 20_000, 1)
+    spec = get_query(q) if win is None else \
+        dataclasses.replace(get_query(q), window=win)
+    runs = [StreamDriver(spec, 15, device=d).run(epochs) for d in (dev, "cpu")]
+    assert len(runs[0]) == len(runs[1]) >= 1
+    for g, c in zip(*runs):
+        assert g.tag == c.tag
+        for name in spec.schema.names:
+            assert g.columns[name].dtype == c.columns[name].dtype
+            np.testing.assert_array_equal(g.columns[name], c.columns[name])
+
+
+def test_ysb_on_the_card_equals_cpu(dev):
+    cfg = YsbConfig(seconds=20, events_per_second=200_000, threads=2)
+    gpu, cpu = run_ysb(cfg, device=dev), run_ysb(cfg, device="cpu")
+    assert len(gpu) == len(cpu) == 2
+    for g, c in zip(gpu, cpu):
+        for name in ("campaign_id", "count"):
+            np.testing.assert_array_equal(g.columns[name], c.columns[name])
+        assert len(g.columns["count"]) == cfg.campaigns

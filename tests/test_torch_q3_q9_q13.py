@@ -80,7 +80,7 @@ def case(request):
     ref = RefDriver(ref_get_query(q), seconds)
     if single:
         whole = [(("win", 0, seconds), list(range(seconds)))]
-        port._window_epoch_ranges = lambda: whole
+        port._window_epoch_ranges = lambda occupancy=None: whole
         ref._window_epoch_ranges = lambda occupancy=None: whole
     got = port.run(_epochs(config))
     return q, config, port, got, ref.run(_epochs(config))
@@ -243,21 +243,121 @@ def _join_plan(build, probe, key):
                         take=(("v", "v"),)), (("k", "k"),))
 
 
-@pytest.mark.parametrize("kind", ["slot_join", "float_keys"])
+@pytest.mark.parametrize("kind", ["float_keys"])
 def test_join_lowering_refuses_unported_modes(kind):
-    """A join of two slot-dense sides (slot_join, q8's) and a join on float
-    keys (sorted_lookup_join) are not on this slice's path: both raise."""
+    """A join on float keys (sorted_lookup_join) is not on the port's path
+    yet: it raises by name."""
     from flock_tpu_torch.batch import Batch
-    from flock_tpu_torch.plan import Aggregate, Scan, compile_plan
+    from flock_tpu_torch.plan import Scan, compile_plan
 
     n = 256
-    k = np.arange(n, dtype=np.float32 if kind == "float_keys" else np.int32)
+    k = np.arange(n, dtype=np.float32)
     cols = {"k": torch.from_numpy(k), "v": torch.arange(n, dtype=torch.int32)}
     tables = {"r": Batch(cols, torch.ones(n, dtype=torch.bool))}
-    if kind == "slot_join":
-        side = Aggregate(Scan("r"), ("k",), (("v", "max", "v"),))
-        root, match = _join_plan(side, side, "k"), "slot_join"
-    else:
-        root, match = _join_plan(Scan("r"), Scan("r"), "k"), "float keys"
-    with pytest.raises(NotImplementedError, match=match):
-        compile_plan(root, 1024)(tables)
+    with pytest.raises(NotImplementedError, match="float keys"):
+        compile_plan(_join_plan(Scan("r"), Scan("r"), "k"), 1024)(tables)
+
+
+I32_MAX = 2**31 - 1
+# (build slot-0 key, build capacity, build valid share, probe slot-0 key,
+#  probe capacity, probe valid share): overlapping either way round, no
+# overlap above or below, a side with no valid row (the sentinel as its
+# slot-0 key), and both empty
+SLOT_JOIN_CASES = {
+    "probe_inside": (1000, 600, 0.7, 1100, 300, 0.8),
+    "probe_before": (1000, 300, 0.7, 900, 600, 0.8),
+    "probe_above": (1000, 300, 0.9, 1300, 200, 1.0),
+    "probe_below": (1000, 300, 0.9, 500, 200, 1.0),
+    "build_far_below": (-2**31 + 5, 128, 1.0, 2**31 - 200, 128, 1.0),
+    "empty_build": (I32_MAX, 256, 0.0, 1000, 128, 1.0),
+    "empty_probe": (1000, 256, 1.0, I32_MAX, 384, 0.0),
+    "both_empty": (I32_MAX, 128, 0.0, I32_MAX, 128, 0.0),
+}
+
+
+def _slotted(rng, m, cap, share):
+    keys = (np.int64(m) + np.arange(cap)).astype(np.int32)   # wraps as K2's
+    return ({"k": keys, "v": rng.integers(0, 100, cap).astype(np.int32),
+             "w": rng.integers(-9, 9, cap).astype(np.int64)},
+            rng.random(cap) < share)
+
+
+@pytest.mark.parametrize("case", list(SLOT_JOIN_CASES))
+def test_slot_join_equals_reference(case):
+    """``kernels.slot_join`` (a join of two slot-dense sides, q8's) against
+    the reference's on the same inputs: every output column and the hit
+    mask equal, row for row."""
+    import jax.numpy as jnp
+
+    from flock_tpu.ops.kernels import slot_join as ref_slot_join
+    from flock_tpu_torch.ops.kernels import slot_join
+
+    rng = np.random.default_rng(len(case))
+    mb, bcap, bshare, mp, pcap, pshare = SLOT_JOIN_CASES[case]
+    bcols, bvalid = _slotted(rng, mb, bcap, bshare)
+    pcols, pvalid = _slotted(rng, mp, pcap, pshare)
+    pcols.pop("w")
+    take = {"v": "bv", "w": "bw"}
+    got, ghit, govf = slot_join(
+        {k: torch.from_numpy(v) for k, v in bcols.items()},
+        torch.from_numpy(bvalid), "k",
+        {k: torch.from_numpy(v) for k, v in pcols.items()},
+        torch.from_numpy(pvalid), "k", take)
+    want, whit, wovf = ref_slot_join(
+        {k: jnp.asarray(v) for k, v in bcols.items()}, jnp.asarray(bvalid),
+        "k", {k: jnp.asarray(v) for k, v in pcols.items()},
+        jnp.asarray(pvalid), "k", take)
+    np.testing.assert_array_equal(ghit.numpy(), np.asarray(whit))
+    assert list(got) == list(want) and not bool(govf) and not bool(wovf)
+    for name, col in want.items():
+        assert got[name].numpy().dtype == np.asarray(col).dtype, name
+        np.testing.assert_array_equal(got[name].numpy(), np.asarray(col),
+                                      err_msg=name)
+    if case in ("probe_inside", "probe_before"):
+        assert ghit.any()
+    elif case != "build_far_below":
+        assert not ghit.any()
+
+
+@pytest.mark.parametrize("empty", ["none", "build", "probe"])
+def test_slot_join_lowering_equals_reference(empty):
+    """Join(Aggregate, Aggregate) on integer keys lowers to ``slot_join`` in
+    both engines, with a side that has no valid row too."""
+    import jax.numpy as jnp
+
+    from flock_tpu.batch import Batch as RefBatch
+    from flock_tpu.plan import Aggregate as RefAggregate
+    from flock_tpu.plan import Join as RefJoin
+    from flock_tpu.plan import Scan as RefScan
+    from flock_tpu.plan import compile_plan as ref_compile
+    from flock_tpu_torch.batch import Batch
+    from flock_tpu_torch.plan import Aggregate, Join, Scan, compile_plan
+
+    rng = np.random.default_rng(8)
+    n = 256
+    host = {"b": {"k": rng.integers(100, 400, n).astype(np.int32),
+                  "v": rng.integers(0, 99, n).astype(np.int32)},
+            "p": {"k": rng.integers(300, 600, n).astype(np.int32),
+                  "v": rng.integers(0, 99, n).astype(np.int32)}}
+    valid = {r: rng.random(n) < (0.0 if empty[0] == r else 0.8)
+             for r in ("b", "p")}
+
+    def plan(A, J, S):
+        return J(build=A(S("b"), ("k",), (("v", "max", "v"),)),
+                 probe=A(S("p"), ("k",), ()), build_key="k", probe_key="k",
+                 take=(("v", "bv"),))
+
+    out, ovf, esc = compile_plan(plan(Aggregate, Join, Scan), 1024)(
+        {r: Batch({k: torch.from_numpy(v) for k, v in c.items()},
+                  torch.from_numpy(valid[r])) for r, c in host.items()})
+    ref, rovf = ref_compile(plan(RefAggregate, RefJoin, RefScan), 1024)(
+        {r: RefBatch({k: jnp.asarray(v) for k, v in c.items()},
+                     jnp.asarray(valid[r])) for r, c in host.items()})
+    rv = np.asarray(ref.valid)
+    np.testing.assert_array_equal(out.valid.numpy(), rv)
+    assert set(out.columns) == set(ref.columns) == {"k", "bv"}
+    for name, col in ref.columns.items():
+        np.testing.assert_array_equal(out.columns[name].numpy()[rv],
+                                      np.asarray(col)[rv], err_msg=name)
+    assert not bool(ovf) and not bool(esc) and not bool(rovf)
+    assert rv.any() == (empty == "none")

@@ -29,7 +29,7 @@ def _drivers(seconds, single_window):
     ref = RefDriver(ref_get_query(4), seconds)
     if single_window:
         whole = [(("win", 0, seconds), list(range(seconds)))]
-        port._window_epoch_ranges = lambda: whole
+        port._window_epoch_ranges = lambda occupancy=None: whole
         ref._window_epoch_ranges = lambda occupancy=None: whole
     return port, ref
 
