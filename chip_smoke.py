@@ -22,29 +22,41 @@ and the script exits non-zero:
    and eight columns, a ragged carry), exact equality on every output row,
    with CUDA event timings of the kernel, the plain version and the nearest
    single PyTorch call, the host's share of the call, the device operations
-   per wrapper call, and each case's byte bound;
+   per wrapper call, and each case's byte bound (K1's and K2's count
+   their keys and aggregated columns over the valid rows only, since an
+   invalid row's values need no read);
 3. the queries, each through ``StreamDriver.run`` (YSB through ``run_ysb``)
-   on the card: q4, q9, q13, q0, q1, q2, q10 and q2 over row-count windows
-   of 5 M bids at the bench size (4 s x 4 M events/s, element-wise
+   on the card: q4, q9, q13, q6, q0, q1, q2, q10 and q2 over row-count
+   windows of 5 M bids at the bench size (4 s x 4 M events/s, element-wise
    windows, one set of epochs); q3 at 4 s x 16 M events/s; q5 (hopping
-   10/5: two windows), q7 and q8 (tumbling 10 s) and q2 over sliding (4/2)
-   and stagger (3 s, epochs 0, 1 and 5 blanked) windows on 15 s x 4 M
+   10/5: two windows), q7 and q8 (tumbling 10 s), q2 over sliding (4/2)
+   and stagger (3 s, epochs 0, 1 and 5 blanked) windows and q12 over
+   processing-time windows ([0, 10) and [10, 15) of arrival) on 15 s x 4 M
    events/s; YSB at 10 s x 4 M events/s.  For each: every kernel of the
    query's path launched (counts zeroed just before the run, read just
    after), no fallback, no plain kernel version on a card tensor, each
-   epoch staged once (range windows), every window's device columns equal
-   to the plain CPU path's and its rows to an independent numpy version;
-   compute-only (StreamDriver's path from prestaged inputs) and
-   feed-inclusive rows/s and the device's idle share.  Then K2 and K3, as
-   in phase 2, on the tensors the main paths of q7, q5 and YSB gave them
-   in their first window: q7's ~36.8 M bids on one key and the gather of
-   their max back to them, q5's count onto ~37 M slots, YSB's ~40 M
-   events onto 128 campaign slots and the gather from 1,000 campaign
-   slots;
+   epoch staged once, every window's device columns equal to the plain
+   CPU path's and its rows to an independent numpy version; compute-only
+   (StreamDriver's path from prestaged inputs; for q12 ``run(epochs,
+   prestaged=prestage(epochs))``) and feed-inclusive rows/s and the
+   device's idle share.  q12 also makes exactly one K2 launch per staged
+   chunk (15), and its fast consts runner equals the general one on the
+   same staged chunks (a ``q12 (tag): fast runner = general runner``
+   line per window).  Then the kernels, as in phase 2, on the tensors the
+   main paths gave them in their first window: K2 and K3 at q7 (~36.8 M
+   bids on one key and the gather of their max back to them), K2 at q5's
+   count onto ~37 M slots, K2 and K3 at YSB (~40 M events onto 128
+   campaign slots, the gather from 1,000 campaign slots), K2 at q12's
+   first chunk count (~3.68 M bids) and K1 at q6 (~3.68 M bids, the int64
+   max of ``__order`` and the seller carry); then K1's int64 max off the
+   main path on the adversarial cases of tests/torch_kernel_cases.py
+   (extremes, negative values, values equal in their high or in their low
+   32 bits, one slot, keys K1's window misses, no valid row), each also
+   against numpy;
 4. the duplicate configuration (10 s x 350 events/s, 3 generators, one 10 s
-   window) for q4, q9 and q3 on the card against numpy — q4 and q9 rerun
-   the window with the duplicate-faithful fallback — and q3 over that
-   window with every person row repeated, which reruns too;
+   window) for q4, q9, q6 and q3 on the card against numpy — q4, q9 and q6
+   rerun the window with the duplicate-faithful fallback — and q3 over
+   that window with every person row repeated, which reruns too;
 5. the card's name and power limit, then one JSON result line.
 
 It imports nothing of ``jax`` or ``flock_tpu``.
@@ -89,6 +101,8 @@ KERNELS = {
 # the kernels each run's main path must launch (the bid-only element-wise
 # queries and q2's windows launch none)
 QUERY_KERNELS = {"q4": ("join_agg", "dense_agg"),
+                 "q6": ("join_agg", "dense_agg"),
+                 "q12": ("dense_agg",),
                  "q9": ("join_agg", "dense_agg", "gather"),
                  "q13": ("dense_agg", "gather"),
                  "q3": ("dense_agg", "gather"),
@@ -229,6 +243,13 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def valid_rows_bytes(valid, *tensors) -> int:
+    """Bytes of ``tensors`` over the rows ``valid`` keeps: an invalid row's
+    values need no read (a staged chunk's padding, a filtered row)."""
+    n = int(valid.sum())
+    return sum(n * t.element_size() for t in tensors)
+
+
 def nbytes_once(*tensors) -> int:
     """Bytes of ``tensors`` with a tensor passed twice counted once (q3's
     probe key is also one of its carried columns: the function reads it
@@ -354,18 +375,81 @@ def _k3_case(what, slots, present, m, keys, valid, out_rows=None,
 
 
 def _k1_bytes(slots, present, probe, pvalid, aggs) -> int:
-    """K1's inputs read once and its [span] outputs (count, key, validity
-    and one per aggregate) written once."""
+    """K1's build side and probe validity read once, its probe columns over
+    the valid rows, and its [span] outputs (count, key, validity and one
+    per aggregate: 8 bytes for a sum or an int64 column's max) written
+    once."""
     span = present.shape[0]
-    outs = sum(8 if fn == "sum" else 4 for _, fn, _ in aggs if fn != "count")
-    return nbytes(*probe.values(), pvalid, present, *slots.values()) \
-        + span * (4 + 4 + 1 + outs)
+    outs = sum(8 if fn == "sum" or (c in probe and probe[c].dtype
+                                    == torch.int64) else 4
+               for c, fn, _ in aggs if fn != "count")
+    return nbytes(pvalid, present, *slots.values()) \
+        + valid_rows_bytes(pvalid, *probe.values()) + span * (4 + 4 + 1 + outs)
+
+
+def _k1_i64_cases() -> dict:
+    """K1's int64 max (q6's ``__order``) off the main path, on the
+    adversarial inputs the CPU and card tests share
+    (tests/torch_kernel_cases.py) at the card tests' size: INT64_MIN and
+    INT64_MAX, negative values, values that differ only in their low or
+    only in their high 32 bits, one slot, keys K1's window misses (global
+    64-bit atomics), no valid row.  Each equal to the plain version and to
+    numpy; the library yardstick is ``scatter_reduce_`` amax of the int64
+    column at the probe slots."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from torch_kernel_cases import (K1_I64_AGGS, K1_I64_CASES, K1_TERMS,
+                                    k1_i64_case, k1_i64_numpy)
+
+    from flock_tpu_torch.ops.join_agg import join_agg_plain, join_aggregate
+    from flock_tpu_torch.plan import Conj
+
+    dev = torch.device("cuda")
+    pred = Conj(K1_TERMS)
+    cases = {}
+    for name in K1_I64_CASES:
+        sl, pr, m0, pb, pv = k1_i64_case(name, span=248_192, n=1_000_000,
+                                         seed=len(name))
+        omax, cnt = k1_i64_numpy(sl, pr, m0, pb, pv)
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        slots, present, probe, pvalid = ({k: t(v) for k, v in sl.items()},
+                                         t(pr), {k: t(v) for k, v in
+                                                 pb.items()}, t(pv))
+        m = torch.tensor(int(m0), dtype=torch.int32, device=dev)
+        args = (slots, present, m, probe, pvalid, "k", pred, K1_I64_AGGS)
+        o1, v1, e1 = join_aggregate(*args)
+        o2, v2 = join_agg_plain(*args)
+        torch.cuda.synchronize()
+        err = _equal(o1, o2, list(o2))
+        if not torch.equal(v1, v2) or bool(e1) \
+                or not np.array_equal(o1["omax"].cpu().numpy(), omax) \
+                or not np.array_equal(o1["c"].cpu().numpy(), cnt):
+            raise AssertionError(f"join_agg int64 {name}: differs")
+        span = present.shape[0]
+        idx = (probe["k"].to(torch.int64) - int(m0)).clamp(0, span)
+        buf = torch.full((span + 1,), -2**63, dtype=torch.int64, device=dev)
+        cases[f"join_agg/i64_{name}"] = dict(
+            kernel=lambda a=args: join_aggregate(*a),
+            plain=lambda a=args: join_agg_plain(*a),
+            library=lambda b=buf, i=idx, o=probe["o"]: b.scatter_reduce_(
+                0, i, o, "amax"),
+            library_call="scatter_reduce_(amax) of the int64 column",
+            device_kernel="join_agg_kernel",
+            bytes=_k1_bytes(slots, present, probe, pvalid, K1_I64_AGGS),
+            err=err, main_path=False)
+    return cases
 
 
 def _k2_bytes(keys, valid, cols, aggs, cap) -> int:
+    """K2's validity read over every row, its keys and columns over the
+    valid rows, and its [cap] outputs written once."""
     outs = sum(8 if fn == "sum" else 4 for _, fn, _ in aggs
                if fn not in ("count", "dups"))
-    return nbytes(keys, valid, *cols.values()) + cap * (4 + 4 + 1 + outs)
+    return nbytes(valid) + valid_rows_bytes(valid, keys, *cols.values()) \
+        + cap * (4 + 4 + 1 + outs)
 
 
 def _adversarial_cases(slots, present, m, probe, pvalid, pred, k1_aggs,
@@ -595,7 +679,70 @@ def _windowed_cases(inputs: dict) -> dict:
     k2("q5_count", count, "bincount of key - m")
     k2("ysb_count", count, "bincount of key - m")
     k3("ysb")
+    k2("q12_chunk_count", count, "bincount of key - m")
+    cases["join_agg/q6"] = _q6_k1_case(*inputs["join_agg/q6"][0])
     return cases
+
+
+def _order_cost(probe: dict) -> None:
+    """Prints the cost of q6's probe-side ``__order`` on the bids of its
+    first window: the query's own expression, timed whole with CUDA events,
+    beside its byte bound (``price`` and ``b_date_time`` read, 8 bytes
+    written a bid).  It must equal the column the fused pass handed K1."""
+    from flock_tpu_torch.plan import Project, walk
+    from flock_tpu_torch.queries.nexmark import get_query
+
+    expr = next(dict(n.exprs)["__order"] for n in walk(get_query(6).plan)
+                if isinstance(n, Project) and "__order" in dict(n.exprs))
+    if not torch.equal(expr(probe), probe["__order"]):
+        raise AssertionError("q6 __order differs from K1's input")
+    size = nbytes(probe["price"], probe["b_date_time"], probe["__order"])
+    print("q6 __order: " + json.dumps({
+        "rows": probe["price"].numel(), "ms": cuda_ms(lambda: expr(probe)),
+        "bytes": size, "bound_ms": size / PEAK_BYTES_S * 1e3}), flush=True)
+
+
+def _q6_k1_case(slots, present, m, probe, pvalid, key, pred, aggs) -> dict:
+    """K1 on the tensors q6's first window gave it: the interval predicate,
+    the int64 max of ``__order`` (made on the probe side) and the seller
+    carry.  Exact against its plain version; the library yardstick is
+    ``scatter_reduce_`` amax of ``__order`` at the probe slots; the bytes
+    are the columns the kernel reads (key, validity, ``b_date_time``,
+    ``__order``, the slot columns, ``present``) once and its outputs
+    once."""
+    from flock_tpu_torch.ops.join_agg import join_agg_plain, join_aggregate
+
+    o1, v1, e1 = join_aggregate(slots, present, m, probe, pvalid, key, pred,
+                                aggs)
+    o2, v2 = join_agg_plain(slots, present, m, probe, pvalid, key, pred, aggs)
+    torch.cuda.synchronize()
+    err = _equal(o1, o2, list(o2))
+    if not torch.equal(v1, v2) or bool(e1) or not bool(v1.any()):
+        raise AssertionError("join_agg q6: validity or escape differs, or "
+                             "no slot won")
+    if o1["__order"].dtype != torch.int64:
+        raise AssertionError("join_agg q6: __order is not an int64 max")
+    _order_cost(probe)
+    span = present.shape[0]
+    idx = (probe[key].to(torch.int64) - m.to(torch.int64)).clamp(0, span)
+    buf = torch.full((span + 1,), -2**63, dtype=torch.int64,
+                     device=present.device)
+    read = {c: probe[c] for c in {key, "__order", *(t for lhs, _, rhs in
+                                                    pred.terms
+                                                    for t in (lhs, rhs))}
+            if c in probe and c not in slots}
+    return dict(
+        kernel=lambda: join_aggregate(slots, present, m, probe, pvalid, key,
+                                      pred, aggs),
+        plain=lambda: join_agg_plain(slots, present, m, probe, pvalid, key,
+                                     pred, aggs),
+        library=lambda: buf.scatter_reduce_(0, idx, probe["__order"], "amax"),
+        library_call="scatter_reduce_(amax) of __order at the probe slots",
+        device_kernel="join_agg_kernel",
+        shape=(f"{pvalid.numel()} bids ({int(pvalid.sum())} valid), "
+               f"{int(present.sum())} of {span} auction slots present, "
+               f"{int(v1.sum())} won"),
+        bytes=_k1_bytes(slots, present, read, pvalid, aggs), err=err)
 
 
 def _agg_names(args) -> list:
@@ -613,6 +760,11 @@ WINDOWED_PICKS = {
     "ysb": {"dense_agg/ysb_count": ("dense_agg",
                                     lambda a: _agg_names(a) == ["count"]),
             "gather/ysb": ("gather", lambda a: list(a[0]) == ["campaign_id"])},
+    # q6's fused pass in its first window: K1 with the int64 max of __order
+    # and the seller carry; q12's first chunk count
+    "q6": {"join_agg/q6": ("join_aggregate", lambda a: "__order" in a[3])},
+    "q12": {"dense_agg/q12_chunk_count": (
+        "dense_agg", lambda a: _agg_names(a) == ["__fast_cnt"])},
 }
 
 
@@ -770,7 +922,8 @@ def phase_kernels(env: dict) -> list[dict]:
                                                 "amax"),
             library_call="scatter_reduce_(amax) of price at the probe slots",
             device_kernel="join_agg_kernel",
-            bytes=nbytes(*probe.values(), pvalid, present, *slots.values())
+            bytes=nbytes(pvalid, present, *slots.values())
+            + valid_rows_bytes(pvalid, *probe.values())
             + nbytes(fused["final"], fused["category"], fvalid) + 4 * span,
             err=err_k1),
         "dense_agg/slotting": dict(
@@ -780,7 +933,9 @@ def phase_kernels(env: dict) -> list[dict]:
                 0, keys.to(torch.int64) - m0, bcols["expires"], "amax"),
             library_call="scatter_reduce_(amax) of one slot column",
             device_kernel="dense_agg_global",
-            bytes=nbytes(keys, bvalid, *bcols.values()) + 16 * span,
+            bytes=nbytes(bvalid) + valid_rows_bytes(bvalid, keys,
+                                                    *bcols.values())
+            + 16 * span,
             err=err_slot),
         "dense_agg/per_category": dict(
             kernel=lambda: dense_agg(fused["category"], fvalid, cat_cols,
@@ -790,7 +945,8 @@ def phase_kernels(env: dict) -> list[dict]:
             library=lambda: cat_buf.index_add_(0, cat_idx, final64),
             library_call="index_add_ of the sum column",
             device_kernel="dense_agg_shared",
-            bytes=nbytes(fused["category"], fvalid, fused["final"]) + 12 * 128,
+            bytes=nbytes(fvalid) + valid_rows_bytes(
+                fvalid, fused["category"], fused["final"]) + 12 * 128,
             err=err_cat),
         # B6's shape: no path of the port runs it, so it stays out of the
         # kernel's summed times
@@ -801,7 +957,9 @@ def phase_kernels(env: dict) -> list[dict]:
                                                  "amax"),
             library_call="scatter_reduce_(amax) of the max column",
             device_kernel="dense_agg_global",
-            bytes=nbytes(keys6, valid6, *cols6.values()) + 8 * span6,
+            bytes=nbytes(valid6) + valid_rows_bytes(valid6, keys6,
+                                                    *cols6.values())
+            + 8 * span6,
             err=err_b6, main_path=False,
             replaces="flock_tpu/pallas/agg.py:97"),
     }
@@ -916,6 +1074,53 @@ def numpy_q9(t: dict) -> dict:
                                       "b_date_time")}
 
 
+def numpy_q6(t: dict) -> dict:
+    """Independent q6: each auction id's winning joined row (every auction
+    row with the id, duplicates included) by (price desc, b_date_time asc,
+    seller asc), then each seller's last 10 winners by (b_date_time desc,
+    auction asc), their prices summed and counted, the average in f64."""
+    auction, bid = t["auction"], t["bid"]
+    bi, ai = _winning_pairs(auction, bid)
+    auc = bid["auction"][bi].astype(np.int64)
+    price = bid["price"][bi].astype(np.int64)
+    ts = bid["b_date_time"][bi].astype(np.int64)
+    seller = auction["seller"][ai].astype(np.int64)
+    order = np.lexsort((seller, ts, -price, auc))
+    first = np.ones(len(order), bool)
+    first[1:] = auc[order][1:] != auc[order][:-1]
+    win = order[first]
+    wa, ws, wp, wt = auc[win], seller[win], price[win], ts[win]
+    by_seller = np.lexsort((wa, -wt, ws))
+    s_sorted = ws[by_seller]
+    starts = np.ones(len(by_seller), bool)
+    starts[1:] = s_sorted[1:] != s_sorted[:-1]
+    pos = np.arange(len(by_seller))
+    rank = pos - np.maximum.accumulate(np.where(starts, pos, 0)) + 1
+    keep = rank <= 10
+    sellers, inv = np.unique(s_sorted[keep], return_inverse=True)
+    sums = np.zeros(len(sellers), np.int64)
+    np.add.at(sums, inv, wp[by_seller][keep])
+    counts = np.bincount(inv, minlength=len(sellers)).astype(np.int64)
+    return {"seller": sellers, "sum_price": sums, "cnt": counts,
+            "avg_price": sums.astype(np.float64) / counts}
+
+
+def numpy_q12(t: dict) -> dict:
+    """Independent q12: per bidder, the bids and the least and greatest
+    ``p_time`` (arrival epoch × 1000) of one processing-time window; the
+    window's rows are in arrival order, so a stable sort by bidder leaves
+    each bidder's first and last arrival at its group's ends."""
+    bid = t["bid"]
+    order = np.argsort(bid["bidder"], kind="stable")
+    b, p = bid["bidder"][order], bid["p_time"][order]
+    first = np.ones(len(b), bool)
+    first[1:] = b[1:] != b[:-1]
+    last = np.append(first[1:], True)
+    idx = np.flatnonzero(first)
+    return {"bidder": b[first], "bid_count": np.diff(np.append(idx, len(b))),
+            "start_time": p[first], "end_time": p[last]}
+
+
 def numpy_q13(t: dict, side_input: dict) -> dict:
     """Independent q13: every bid whose auction id is a side-input key,
     with that key's value (the keys are unique)."""
@@ -1006,8 +1211,8 @@ def numpy_query(q: int, tables: dict) -> dict:
     if q == 13:
         return numpy_q13(tables, default_side_input())
     return {0: numpy_q0, 1: numpy_q1, 2: numpy_q2, 3: numpy_q3, 4: numpy_q4,
-            5: numpy_q5, 7: numpy_q7, 8: numpy_q8, 9: numpy_q9,
-            10: numpy_q0}[q](tables)
+            5: numpy_q5, 6: numpy_q6, 7: numpy_q7, 8: numpy_q8, 9: numpy_q9,
+            10: numpy_q0, 12: numpy_q12}[q](tables)
 
 
 def _same_rows(got: dict, want: dict, names, what: str) -> None:
@@ -1094,15 +1299,17 @@ def executors_made():
 
 @contextlib.contextmanager
 def kernel_inputs(picks: dict, into: dict):
-    """Keep the arguments of the K2 (``dense_agg``) and K3 (``gather``)
-    calls the plan makes inside the block: ``picks`` maps a case name to
-    (wrapper, test of the call's positional arguments), and ``into`` gets,
-    for each case, the (args, kwargs) of the first call its test takes.
-    The wrapper itself runs as it would, and counts its launch as it
-    would."""
+    """Keep the arguments of the K1 (``join_aggregate``, called by the
+    plan), K2 (``dense_agg``) and K3 (``gather``, called by the plain ops)
+    calls made inside the block: ``picks`` maps a case name to (wrapper,
+    test of the call's positional arguments), and ``into`` gets, for each
+    case, the (args, kwargs) of the first call its test takes.  The wrapper
+    itself runs as it would, and counts its launch as it would."""
+    from flock_tpu_torch import plan
     from flock_tpu_torch.ops import kernels
 
-    wrappers = {n: getattr(kernels, n) for n in ("dense_agg", "gather")}
+    where = {"dense_agg": kernels, "gather": kernels, "join_aggregate": plan}
+    wrappers = {n: getattr(mod, n) for n, mod in where.items()}
 
     def keeping(n):
         def call(*args, **kw):
@@ -1112,13 +1319,13 @@ def kernel_inputs(picks: dict, into: dict):
             return wrappers[n](*args, **kw)
         return call
 
-    for n in wrappers:
-        setattr(kernels, n, keeping(n))
+    for n, mod in where.items():
+        setattr(mod, n, keeping(n))
     try:
         yield into
     finally:
-        for n, f in wrappers.items():
-            setattr(kernels, n, f)
+        for n, mod in where.items():
+            setattr(mod, n, wrappers[n])
 
 
 @dataclasses.dataclass
@@ -1133,6 +1340,10 @@ class Path:
     run: object
     feed: object
     single: list | None = None
+    # compute(ex, staged): every window from the staged inputs, when the
+    # driver's own run does it (processing-time windows); else run() per
+    # window
+    compute: object = None
 
 
 def epoch_path(driver, epochs) -> Path:
@@ -1178,6 +1389,47 @@ def window_path(windows, caps_of) -> Path:
     return Path(windows,
                 lambda ex: [ex.prepare_window(t, caps_of(t))
                             for _, t in windows], run, feed)
+
+
+def consts_path(spec, epochs: list, seconds: int) -> Path:
+    """The processing-time windows' path: every epoch's projected bid
+    table prestaged (``StreamDriver.prestage``), each window of w arrival
+    epochs through ``execute_consts`` at the driver's capacity
+    (``_bucket_cap_fine`` of the window's key span and the margin).  The
+    host tables carry ``p_time`` for the numpy version."""
+    from flock_tpu_torch.config import CONFIG
+    from flock_tpu_torch.runtime.stream import StreamDriver, _bucket_cap_fine
+
+    w = spec.window[1]
+    ranges = [[t for t in range(s0, min(s0 + w, seconds))
+               if len(epochs[t]["bid"]["bidder"])]
+              for s0 in range(0, seconds, w)]
+    windows, caps = [], []
+    for s0, rng in zip(range(0, seconds, w), ranges):
+        bid = {c: np.concatenate([epochs[t]["bid"][c] for t in rng])
+               for c in epochs[0]["bid"]}
+        bid["p_time"] = np.concatenate([
+            np.full(len(epochs[t]["bid"]["bidder"]), t * 1000, np.int64)
+            for t in rng])
+        windows.append((("ptime", s0, s0 + w), {"bid": bid}))
+        keys = bid["bidder"]
+        caps.append(_bucket_cap_fine(int(keys.max()) - int(keys.min()) + 1
+                                     + CONFIG.agg_span_margin))
+
+    def driver(ex):
+        d = StreamDriver(spec, seconds, device=ex.device)
+        d.executor = ex
+        return d
+
+    def run(ex, staged, i):
+        return ex.execute_consts([staged[t] for t in ranges[i]],
+                                 {"p_time": [t * 1000 for t in ranges[i]]},
+                                 caps[i])
+
+    return Path(windows, lambda ex: driver(ex).prestage(epochs), run,
+                lambda ex: driver(ex).run(epochs),
+                compute=lambda ex, staged: driver(ex).run(
+                    epochs, prestaged=staged))
 
 
 def phase_query(label: str, spec, main, path_of, numpy_fn, seconds: int,
@@ -1245,6 +1497,8 @@ def phase_query(label: str, spec, main, path_of, numpy_fn, seconds: int,
     torch.cuda.synchronize()
 
     def compute():
+        if path.compute is not None:
+            return path.compute(ex, staged)
         for i in range(len(path.windows)):
             path.run(ex, staged, i, False)
 
@@ -1332,6 +1586,64 @@ def phase_stream(label: str, spec, epochs: list, seconds: int, eps: int,
                        seconds, eps, gen_s, card_line, once, inputs)
 
 
+def phase_q12(epochs: list, gen_s: float, card_line: str,
+              inputs: dict) -> dict:
+    """q12 through ``StreamDriver.run`` on the windowed epochs: arrival
+    windows [0, 10) and [10, 15).  Compute-only is ``run(epochs,
+    prestaged=prestage(epochs))`` (bench.py:205-217), feed-inclusive
+    ``run(epochs)``.  The main path makes one K2 count per staged chunk;
+    then, on the same staged chunks, the fast runner is held against the
+    general one (``_run_plan_consts``: the chunks concatenated, ``p_time``
+    filled on the device, the plan's count/min/max on K2): validity equal,
+    every column equal on the valid rows."""
+    from flock_tpu_torch.queries.nexmark import get_query
+    from flock_tpu_torch.runtime.executor import LocalExecutor
+    from flock_tpu_torch.runtime.stream import StreamDriver
+
+    spec = get_query(12)
+    chunks = sum(1 for e in epochs if len(e["bid"]["bidder"]))
+    launches = phase_query(
+        "q12", spec,
+        lambda: StreamDriver(spec, WIN_SECONDS, device="cuda").run(epochs),
+        lambda: consts_path(spec, epochs, WIN_SECONDS), numpy_q12,
+        WIN_SECONDS, BENCH_EPS, gen_s, card_line, chunks, inputs)
+    if launches["dense_agg"] != chunks:
+        raise AssertionError(f"q12: {launches['dense_agg']} K2 launches for "
+                             f"{chunks} staged chunks")
+    # the driver's host bookkeeping per run: each epoch's key range (numpy
+    # min and max over its bidder column), which sizes the window's slots
+    t0 = time.perf_counter()
+    for e in epochs:
+        keys = e["bid"]["bidder"]
+        int(keys.min()), int(keys.max())
+    print("q12 host: " + json.dumps({
+        "key_range_ms": (time.perf_counter() - t0) * 1e3,
+        "rows": sum(len(e["bid"]["bidder"]) for e in epochs)}), flush=True)
+    ex = LocalExecutor(spec, device="cuda")
+    path = consts_path(spec, epochs, WIN_SECONDS)
+    staged = path.stage(ex)
+    for i, (tag, _) in enumerate(path.windows):
+        fast = path.run(ex, staged, i)
+        rng = [t for t in range(tag[1], min(tag[2], WIN_SECONDS))
+               if staged[t] is not None]
+        general = ex._run_plan_consts(
+            [staged[t] for t in rng], "bid", ("p_time",),
+            np.asarray([[t * 1000] for t in rng], np.int32), fast.capacity)
+        if not torch.equal(fast.valid, general.valid) \
+                or not bool(fast.valid.any()):
+            raise AssertionError(f"q12 {tag}: fast and general runners' "
+                                 "validity differs")
+        v = fast.valid
+        for name, col in general.columns.items():
+            if not torch.equal(fast.columns[name][v], col[v]):
+                raise AssertionError(f"q12 {tag}: fast and general runners "
+                                     f"differ in {name}")
+        print(f"q12 {tag}: fast runner = general runner on "
+              f"{sum(staged[t].capacity for t in rng)} rows, "
+              f"{int(v.sum())} bidders, capacity {fast.capacity}", flush=True)
+    return launches
+
+
 def phase_ysb(card_line: str, inputs: dict) -> dict:
     """YSB at bench.py's size through ``run_ysb`` on the card."""
     from flock_tpu_torch.datagen.ysb import YsbConfig
@@ -1388,7 +1700,7 @@ def phase_duplicates() -> None:
     seconds = 10
     epochs = generate_epochs(seconds, 350, 3)
     window = concat_relations(epochs, ("person", "auction", "bid"))
-    for q, reruns in ((4, 1), (9, 1), (3, 0)):
+    for q, reruns in ((4, 1), (9, 1), (6, 1), (3, 0)):
         spec = get_query(q)
         driver = StreamDriver(spec, seconds, device="cuda")
         driver._window_epoch_ranges = lambda occupancy=None: [
@@ -1453,10 +1765,11 @@ def main() -> int:
     t0 = time.perf_counter()
     epochs = generate_epochs(BENCH_SECONDS, BENCH_EPS, 1)
     gen_s = time.perf_counter() - t0
-    for q in (4, 9, 13, 0, 1, 2, 10):
+    inputs = {}   # the main paths' kernel calls that kernel cases take
+    for q in (4, 9, 13, 6, 0, 1, 2, 10):
         launches[f"q{q}"] = phase_stream(f"q{q}", get_query(q), epochs,
                                          BENCH_SECONDS, BENCH_EPS, gen_s,
-                                         card_line)
+                                         card_line, inputs=inputs)
     launches["q2-rows"] = phase_stream(
         "q2-rows", dataclasses.replace(get_query(2), window=("rows", ROWS_N)),
         epochs, BENCH_SECONDS, BENCH_EPS, gen_s, card_line)
@@ -1470,7 +1783,6 @@ def main() -> int:
     t0 = time.perf_counter()
     epochs = generate_epochs(WIN_SECONDS, BENCH_EPS, 1)
     gen_s = time.perf_counter() - t0
-    inputs = {}   # the windowed queries' kernel calls, for their cases
     for q in (5, 7, 8):
         launches[f"q{q}"] = phase_stream(f"q{q}", get_query(q), epochs,
                                          WIN_SECONDS, BENCH_EPS, gen_s,
@@ -1480,10 +1792,12 @@ def main() -> int:
         launches[label] = phase_stream(
             label, dataclasses.replace(get_query(2), window=win), ep,
             WIN_SECONDS, BENCH_EPS, gen_s, card_line)
+    launches["q12"] = phase_q12(epochs, gen_s, card_line, inputs)
     del epochs
     launches["ysb"] = phase_ysb(card_line, inputs)
     cases += time_cases(env, _windowed_cases(inputs))
     del inputs
+    cases += time_cases(env, _k1_i64_cases())
     print(json.dumps(kernels_line(cases, launches)), flush=True)
     phase_duplicates()
     print(card_line, flush=True)

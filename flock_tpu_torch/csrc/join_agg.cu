@@ -16,9 +16,12 @@
 // passing pairs accumulate into the slot: the pair count (int32), and per
 // aggregate count_sum (int32), sum (int64 through 64-bit atomics), min / max
 // (int32, empty slots keep INT_MAX / INT_MIN).  Aggregated and compared
-// columns come from either side.  Joined rows are never built.  The kernel
-// initialises every output itself and writes the slot keys and
-// out_valid = count > 0.
+// columns come from either side.  One more aggregate, kMax64, takes an int64
+// probe column that is never compared (q6's __order = price << 32 |
+// (2^32 - 1 - b_date_time)): its max per slot, exact for every int64 value
+// through signed 64-bit atomics, into an int64 output whose empty slots keep
+// INT64_MIN.  Joined rows are never built.  The kernel initialises every
+// output itself and writes the slot keys and out_valid = count > 0.
 //
 // What bounds it on this card.  Bytes: each probe row is read once (q4: key,
 // valid flag, price, b_date_time = 13 B), the slot columns once (13 B a
@@ -56,7 +59,9 @@
 //     output, and back to its identity for the next tile.
 // Aggregates of a slot column (q4's category carry) take no atomic at all:
 // every pair on slot i carries col[i], so the epilogue writes them from
-// col[i] and the pair count.
+// col[i] and the pair count.  An int64 column (kMax64) is not held in
+// registers with the int32 probe columns: a pair loads its 8 bytes just
+// before its atomics, and its window accumulator sits with the 8-byte sums.
 // What is left on the device: a global atomic per touched slot per tile
 // (~1 per 6 bids at q4's frontier), the dependent gathers of `present` and
 // the slot columns, and the two grid syncs.
@@ -66,6 +71,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include "warp_agg.cuh"
 
@@ -88,6 +94,7 @@ constexpr int kWindow = 2048;          // slots accumulated in shared memory
 constexpr int kBlocksPerSm = 4;
 
 enum Op : int32_t { kLt = 0, kLe = 1, kGt = 2, kGe = 3, kEq = 4, kNe = 5 };
+enum Side : int32_t { kProbe = 0, kSlot = 1, kProbe64 = 2 };
 
 struct Params {
   const int32_t* key;
@@ -98,9 +105,11 @@ struct Params {
   int32_t span;
   bool vec;  // key and probe columns 16-byte aligned, valid 4-byte aligned
   int32_t ncols;
-  const int32_t* col[kMaxCols];
-  int32_t col_slot[kMaxCols];   // 1: slot column [span]; 0: probe column [n]
-  int32_t col_probe[kMaxCols];  // a probe column's register index
+  const int32_t* col[kMaxCols];  // an int64 column's pointer, cast
+  // 1: slot column [span]; 0: int32 probe column [n]; 2: int64 probe column
+  // [n], only aggregated (kMax64)
+  int32_t col_side[kMaxCols];
+  int32_t col_probe[kMaxCols];  // an int32 probe column's register index
   int32_t nprobe;
   const int32_t* probe[kMaxProbe];
   int32_t nterms;
@@ -126,7 +135,7 @@ struct Params {
 __device__ __forceinline__ int32_t value(const Params& p, int c, int32_t s,
                                          const int32_t (&pv)[kMaxProbe][kRows],
                                          int r) {
-  if (p.col_slot[c]) return __ldg(p.col[c] + s);
+  if (p.col_side[c] == kSlot) return __ldg(p.col[c] + s);
   const int k = p.col_probe[c];
   int32_t v = pv[0][r];
 #pragma unroll
@@ -146,6 +155,10 @@ __device__ __forceinline__ bool compare(int32_t op, int32_t a, int32_t b) {
   }
 }
 
+// kWide: some aggregate is kMax64.  Without one the kernel holds its
+// aggregated values as int32, as before kMax64 existed, so the int32-only
+// calls (q4, q9) keep their registers.
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
 join_agg_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(8) unsigned char smem[];
@@ -227,10 +240,19 @@ join_agg_kernel(const __grid_constant__ Params p) {
       for (int r = 0; r < kRows; ++r) {
         if (!pair[r]) continue;
         const int32_t slot = s[r];
-        int32_t av[kMaxAggs];  // gathered before the atomics
+        // this thread's row r: quad r / 4 of the tile, element r % 4
+        const int64_t row = tile * kTile + 4 * ((r / 4) * static_cast<int64_t>(kThreads)
+                                                + threadIdx.x) + r % 4;
+        using Value = typename std::conditional<kWide, long long, int32_t>::type;
+        Value av[kMaxAggs];  // gathered before the atomics
 #pragma unroll
-        for (int a = 0; a < kMaxAggs; ++a)
-          av[a] = a < p.naggs ? value(p, p.acol[a], slot, pv, r) : 0;
+        for (int a = 0; a < kMaxAggs; ++a) {
+          if (a >= p.naggs) av[a] = 0;
+          else if (kWide && p.fn[a] == kMax64)
+            av[a] = static_cast<Value>(
+                __ldcs(reinterpret_cast<const long long*>(p.col[p.acol[a]]) + row));
+          else av[a] = value(p, p.acol[a], slot, pv, r);
+        }
         // a slot in the window (k = slot - wbase >= 0; k < kWindow since
         // slot <= hi) goes to shared memory, any other to device memory
         const int32_t k = slot - wbase;
@@ -239,8 +261,14 @@ join_agg_kernel(const __grid_constant__ Params p) {
 #pragma unroll
         for (int a = 0; a < kMaxAggs; ++a) {
           if (a >= p.naggs) break;
-          if (k >= 0) apply<true>(p.fn[a], smem + p.smem_off[a], k, av[a]);
-          else apply<false>(p.fn[a], p.out[a], slot, av[a]);
+          if (kWide && p.fn[a] == kMax64) {
+            if (k >= 0) apply_max64<true>(smem + p.smem_off[a], k, av[a]);
+            else apply_max64<false>(p.out[a], slot, av[a]);
+          } else if (k >= 0) {
+            apply<true>(p.fn[a], smem + p.smem_off[a], k, av[a]);
+          } else {
+            apply<false>(p.fn[a], p.out[a], slot, av[a]);
+          }
         }
       }
       __syncthreads();
@@ -285,8 +313,9 @@ join_agg_kernel(const __grid_constant__ Params p) {
 
 // Launches K1 on `stream`: one cooperative launch that initialises and
 // writes every output.  `args` packs, as int64: `ncols` column pointers,
-// their sides (1 slot, 0 probe), `nterms` triples (lhs column, Op, rhs
-// column), `naggs` pairs (aggregate code, column), `naggs` output pointers.
+// their sides (Side: 1 slot, 0 int32 probe, 2 int64 probe, which only
+// kMax64 may aggregate), `nterms` triples (lhs column, Op, rhs column),
+// `naggs` pairs (aggregate code, column), `naggs` output pointers.
 // `cnt` and `key_out` are int32[span], `valid_out` bool[span].
 extern "C" int flock_join_agg(const int32_t* key, const uint8_t* valid,
                               int64_t n, const uint8_t* present,
@@ -310,8 +339,11 @@ extern "C" int flock_join_agg(const int32_t* key, const uint8_t* valid,
   const int64_t* sides = args + ncols;
   for (int c = 0; c < ncols; ++c) {
     p.col[c] = reinterpret_cast<const int32_t*>(args[c]);
-    p.col_slot[c] = static_cast<int32_t>(sides[c]);
-    if (!p.col_slot[c]) {
+    p.col_side[c] = static_cast<int32_t>(sides[c]);
+    if (p.col_side[c] < kProbe || p.col_side[c] > kProbe64 ||
+        (p.col_side[c] == kProbe64 && !aligned(p.col[c], 8)))
+      return cudaErrorInvalidValue;
+    if (p.col_side[c] == kProbe) {
       if (p.nprobe == kMaxProbe) return cudaErrorInvalidValue;
       p.col_probe[c] = p.nprobe;
       p.probe[p.nprobe++] = p.col[c];
@@ -325,20 +357,23 @@ extern "C" int flock_join_agg(const int32_t* key, const uint8_t* valid,
     p.op[t] = static_cast<int32_t>(terms[3 * t + 1]);
     p.rhs[t] = static_cast<int32_t>(terms[3 * t + 2]);
     if (p.lhs[t] < 0 || p.lhs[t] >= ncols || p.rhs[t] < 0 ||
-        p.rhs[t] >= ncols || p.op[t] < kLt || p.op[t] > kNe)
+        p.rhs[t] >= ncols || p.op[t] < kLt || p.op[t] > kNe ||
+        p.col_side[p.lhs[t]] == kProbe64 || p.col_side[p.rhs[t]] == kProbe64)
       return cudaErrorInvalidValue;
   }
   const int64_t* fns = terms + 3 * nterms;
   const int64_t* outs = fns + 2 * naggs;
-  // window layout: int64 accumulators first (8-byte aligned), then the pair
-  // counts, then the int32 accumulators
+  // window layout: int64 accumulators (sums, kMax64) first (8-byte aligned),
+  // then the pair counts, then the int32 accumulators
   int64_t bytes = 0;
   for (int a = 0; a < naggs; ++a) {
     const int32_t fn = static_cast<int32_t>(fns[2 * a]);
     const int32_t c = static_cast<int32_t>(fns[2 * a + 1]);
-    if (fn < kCountSum || fn > kMax || c < 0 || c >= ncols)
+    // kMax64 takes exactly the int64 probe columns, every other code int32
+    if (fn < kCountSum || fn > kMax64 || c < 0 || c >= ncols ||
+        (fn == kMax64) != (p.col_side[c] == kProbe64))
       return cudaErrorInvalidValue;
-    if (p.col_slot[c]) {
+    if (p.col_side[c] == kSlot) {
       p.sfn[p.nslot] = fn;
       p.scol[p.nslot] = p.col[c];
       p.sout[p.nslot++] = reinterpret_cast<void*>(outs[a]);
@@ -348,19 +383,32 @@ extern "C" int flock_join_agg(const int32_t* key, const uint8_t* valid,
     p.fn[b] = fn;
     p.acol[b] = c;
     p.out[b] = reinterpret_cast<void*>(outs[a]);
-    if (fn == kSum) { p.smem_off[b] = static_cast<int32_t>(bytes); bytes += 8LL * kWindow; }
+    if (fn == kSum || fn == kMax64) {
+      p.smem_off[b] = static_cast<int32_t>(bytes);
+      bytes += 8LL * kWindow;
+    }
   }
   p.smem_cnt_off = static_cast<int32_t>(bytes);
   bytes += 4LL * kWindow;
   for (int a = 0; a < p.naggs; ++a)
-    if (p.fn[a] != kSum) { p.smem_off[a] = static_cast<int32_t>(bytes); bytes += 4LL * kWindow; }
+    if (p.fn[a] != kSum && p.fn[a] != kMax64) {
+      p.smem_off[a] = static_cast<int32_t>(bytes);
+      bytes += 4LL * kWindow;
+    }
   p.cnt = cnt;
   p.key_out = key_out;
   p.valid_out = valid_out;
 
-  const void* kernel = reinterpret_cast<const void*>(join_agg_kernel);
+  bool wide = false;
+  for (int a = 0; a < p.naggs; ++a) wide = wide || p.fn[a] == kMax64;
+  const void* narrow_kernel = reinterpret_cast<const void*>(join_agg_kernel<false>);
+  const void* wide_kernel = reinterpret_cast<const void*>(join_agg_kernel<true>);
+  const void* kernel = wide ? wide_kernel : narrow_kernel;
   const size_t smem = static_cast<size_t>(bytes);  // up to 139 KB (8 sums)
-  static const cudaError_t opted = allow_all_shared(kernel);
+  static const cudaError_t opted = [&] {
+    const cudaError_t e = allow_all_shared(narrow_kernel);
+    return e != cudaSuccess ? e : allow_all_shared(wide_kernel);
+  }();
   if (opted != cudaSuccess) return static_cast<int>(opted);
   // one block per tile, at least enough to initialise the span, no more
   // than are resident at once

@@ -27,7 +27,8 @@ namespace flock {
 
 constexpr unsigned kFull = 0xffffffffu;
 
-enum Fn : int32_t { kCountSum = 1, kSum = 2, kMin = 3, kMax = 4 };
+// kMax64 (K1 only): max over an int64 probe column into an int64 output
+enum Fn : int32_t { kCountSum = 1, kSum = 2, kMin = 3, kMax = 4, kMax64 = 5 };
 
 using ull = unsigned long long;
 
@@ -64,10 +65,12 @@ __device__ __forceinline__ void load_quad(const uint8_t* p, int64_t row,
   for (int e = 0; e < 4; ++e) v[e] = row + e < n && __ldg(p + row + e);
 }
 
-// An accumulator slot at its identity: 0, INT_MAX for min, INT_MIN for max.
+// An accumulator slot at its identity: 0, INT_MAX for min, INT_MIN for max,
+// LLONG_MIN for the int64 max.
 __device__ __forceinline__ void init_slot(int32_t fn, void* acc, int64_t i) {
   switch (fn) {
     case kSum: static_cast<long long*>(acc)[i] = 0; break;
+    case kMax64: static_cast<long long*>(acc)[i] = LLONG_MIN; break;
     case kMin: static_cast<int*>(acc)[i] = INT_MAX; break;
     case kMax: static_cast<int*>(acc)[i] = INT_MIN; break;
     default: static_cast<int*>(acc)[i] = 0; break;
@@ -88,6 +91,9 @@ __device__ __forceinline__ void flush_slot(int32_t fn, void* from, int64_t k,
       break;
     case kMin: atomicMin(static_cast<int*>(to) + s, static_cast<int*>(from)[k]); break;
     case kMax: atomicMax(static_cast<int*>(to) + s, static_cast<int*>(from)[k]); break;
+    case kMax64:
+      atomicMax(static_cast<long long*>(to) + s, static_cast<long long*>(from)[k]);
+      break;
   }
   init_slot(fn, from, k);
 }
@@ -125,6 +131,14 @@ __device__ __forceinline__ void apply(int32_t fn, void* acc, int64_t s, long lon
         atomicMax(o, static_cast<int>(t));
       break;
   }
+}
+
+// kMax64: t into the int64 max acc[s], a signed 64-bit atomicMax (exact for
+// every value), skipped in shared memory when t cannot win.
+template <bool kShared>
+__device__ __forceinline__ void apply_max64(void* acc, int64_t s, long long t) {
+  long long* o = static_cast<long long*>(acc) + s;
+  if (!kShared || t > *static_cast<volatile long long*>(o)) atomicMax(o, t);
 }
 
 // The wrapped int32 key of slot i (m + i mod 2³², as PyTorch's int64 → int32

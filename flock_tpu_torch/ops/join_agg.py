@@ -14,6 +14,17 @@ comparisons (``plan.Conj``): the plain version calls it on the column dict,
 the kernel reads its ``terms``.  A predicate without terms (an arbitrary
 callable) raises on a CUDA tensor — it never falls back to the plain
 version there.
+
+Columns are int32, with two exceptions.  An int64 column that the
+predicate compares (a timestamp) is rebased to int32 first.  An int64
+probe column that only ``max`` aggregates and nothing compares (q6's
+``__order = price << 32 | (2³² − 1 − b_date_time)``) passes through as it
+stands: its maximum is exact over every int64 value, into an int64 output
+that holds ``INT64_MIN`` where no pair landed — the identity of the plain
+version's scatter.  The reference keeps that accumulator on its XLA path
+(``pallas/join_agg.py:23-25``); the port has no such path, so K1 holds it.
+Any other int64 aggregate (sum, min, a slot column, a compared column)
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,17 +40,53 @@ from flock_tpu_torch.ops.dense_agg import AGG_CODES, FNS, slot_keys
 _OPS = {"<": 0, "<=": 1, ">": 2, ">=": 3, "==": 4, "!=": 5}
 _MAX_COLS, _MAX_TERMS, _MAX_AGGS, _MAX_PROBE = 16, 8, 8, 4
 _I64_SPAN = 2**31 - 2
+# the kernel's code for max over an int64 probe column (enum Fn in
+# csrc/warp_agg.cuh), outside K2's codes; such a column has side 2 in the
+# packed column table (1 slot, 0 int32 probe)
+_MAX64 = 5
 
 
-def _rebase_i64(slot_cols, present, probe_cols, probe_valid):
-    """int64 columns (timestamps) shift by one shared base — the minimum
-    over live values — to int32, which keeps comparisons between them exact.
+def _compared(pred) -> set[str] | None:
+    """The columns an inspectable predicate compares; None for a callable,
+    whose reads are unknown."""
+    if pred is None:
+        return set()
+    terms = getattr(pred, "terms", None)
+    return None if terms is None else {c for lhs, _, rhs in terms
+                                       for c in (lhs, rhs)}
+
+
+def unsupported_aggs(slot_cols, probe_cols, pred, aggs) -> list[str]:
+    """The aggregated columns K1 cannot take: any but int32, except an
+    int64 probe column under ``max`` that the predicate (inspectable)
+    does not compare."""
+    compared = _compared(pred)
+    bad = []
+    for c, fn, _ in aggs:
+        if fn == "count":
+            continue
+        v = slot_cols[c] if c in slot_cols else probe_cols[c]
+        wide_max = (fn == "max" and v.dtype == torch.int64
+                    and c not in slot_cols and compared is not None
+                    and c not in compared)
+        if v.dtype != torch.int32 and not wide_max:
+            bad.append(c)
+    return bad
+
+
+def _rebase_i64(slot_cols, present, probe_cols, probe_valid, compared):
+    """The int64 columns in ``compared`` (timestamps; every int64 column
+    when ``compared`` is None) shift by one shared base — the minimum over
+    live values — to int32, which keeps comparisons between them exact.
     Returns (slot_cols, probe_cols, escape): ``escape`` is set when the live
-    int64 values span 2³¹ or more (the ``_rebased`` contract)."""
+    values span 2³¹ or more (the ``_rebased`` contract)."""
     from flock_tpu_torch.ops.kernels import false_flag  # kernels imports us
 
-    i64_p = [k for k, v in probe_cols.items() if v.dtype == torch.int64]
-    i64_s = [k for k, v in slot_cols.items() if v.dtype == torch.int64]
+    def rebased(cols):
+        return [k for k, v in cols.items() if v.dtype == torch.int64
+                and (compared is None or k in compared)]
+
+    i64_p, i64_s = rebased(probe_cols), rebased(slot_cols)
     if not i64_p and not i64_s:
         return slot_cols, probe_cols, false_flag(present.device)
     big, small = torch.iinfo(torch.int64).max, torch.iinfo(torch.int64).min
@@ -81,7 +128,11 @@ def join_agg_plain(slot_cols, present, m, probe_cols, probe_valid, probe_key,
     return out, cnt > 0
 
 
-def _check(slot_cols, present, probe_cols, probe_valid, probe_key, aggs):
+def _check(slot_cols, present, probe_cols, probe_valid, probe_key, terms,
+           aggs):
+    """Every column the kernel reads: the probe key, the compared columns
+    and the aggregated ones, int32 but for the int64 probe columns under
+    ``max`` that ``unsupported_aggs`` admitted."""
     n, span = probe_valid.shape[0], present.shape[0]
     dev = present.device
 
@@ -93,12 +144,21 @@ def _check(slot_cols, present, probe_cols, probe_valid, probe_key, aggs):
 
     vec(probe_valid, torch.bool, n, "probe_valid")
     vec(present, torch.bool, span, "present")
-    for k, v in probe_cols.items():
-        vec(v, torch.int32, n, f"probe column {k}")
-    for k, v in slot_cols.items():
-        vec(v, torch.int32, span, f"slot column {k}")
     if probe_key not in probe_cols:
         raise KeyError(f"join_agg: probe key {probe_key}")
+    vec(probe_cols[probe_key], torch.int32, n, "probe key")
+    wide = {c for c, fn, _ in aggs if fn == "max" and c not in slot_cols
+            and c in probe_cols and probe_cols[c].dtype == torch.int64}
+    read = [c for lhs, _, rhs in terms for c in (lhs, rhs)] \
+        + [c for c, fn, _ in aggs if fn != "count"]
+    for c in read:
+        if c in slot_cols:
+            vec(slot_cols[c], torch.int32, span, f"slot column {c}")
+        elif c in probe_cols:
+            vec(probe_cols[c], torch.int64 if c in wide else torch.int32, n,
+                f"probe column {c}")
+        else:
+            raise KeyError(f"join_agg: unknown column {c}")
     for c, fn, _ in aggs:
         if fn not in FNS:
             raise NotImplementedError(f"join_agg: aggregate {fn!r}")
@@ -116,11 +176,14 @@ def _lib() -> ctypes.CDLL:
 
 
 @lru_cache(maxsize=256)
-def _codes(slot_names: tuple, probe_names: tuple, terms: tuple, aggs: tuple):
+def _codes(slot_names: tuple, probe_names: tuple, wide: tuple, terms: tuple,
+           aggs: tuple):
     """The kernel's column table and codes for one call signature, cached:
     (names of the columns the kernel reads, their sides, the packed codes
     ``sides + terms + (fn, column) pairs``).  A name on both sides reads the
-    slot column, as the plain version."""
+    slot column, as the plain version.  ``wide`` names the int64 probe
+    columns, which only ``max`` aggregates (code ``_MAX64``, side 2): they
+    take no register of the kernel's ``_MAX_PROBE``."""
     names: list[str] = []
 
     def col(name):
@@ -134,15 +197,22 @@ def _codes(slot_names: tuple, probe_names: tuple, terms: tuple, aggs: tuple):
     for lhs, op, rhs in terms:
         if op not in _OPS:
             raise NotImplementedError(f"join_agg: comparison {op!r}")
+        if lhs in wide or rhs in wide:
+            raise NotImplementedError("join_agg: an int64 probe column is "
+                                      "compared unrebased")
         term_codes += [col(lhs), _OPS[op], col(rhs)]
     agg_codes = []
     for c, fn, _ in aggs:
-        if fn != "count":
-            agg_codes += [AGG_CODES[fn], col(c)]
-    sides = tuple(int(c in slot_names) for c in names)
+        if fn == "count":
+            continue
+        if c in wide and fn != "max":
+            raise NotImplementedError(f"join_agg: {fn} of an int64 column")
+        agg_codes += [_MAX64 if c in wide else AGG_CODES[fn], col(c)]
+    sides = tuple(1 if c in slot_names else 2 if c in wide else 0
+                  for c in names)
     if len(names) > _MAX_COLS or len(terms) > _MAX_TERMS \
             or len(agg_codes) // 2 > _MAX_AGGS \
-            or len(sides) - sum(sides) > _MAX_PROBE:
+            or sides.count(0) > _MAX_PROBE:
         raise NotImplementedError(
             "join_agg: too many columns, terms, aggregates or probe columns "
             f"(at most {_MAX_PROBE}) for the kernel")
@@ -158,7 +228,9 @@ def _launch(slot_cols, present, m, probe_cols, probe_valid, probe_key, pred,
         raise NotImplementedError(
             "join_agg: the kernel reads only conjunctions of column "
             f"comparisons (plan.Conj), got {pred!r}")
-    names, sides, codes = _codes(tuple(slot_cols), tuple(probe_cols),
+    wide = tuple(c for c, fn, _ in aggs if fn == "max" and c not in slot_cols
+                 and probe_cols[c].dtype == torch.int64)
+    names, sides, codes = _codes(tuple(slot_cols), tuple(probe_cols), wide,
                                  tuple(terms), tuple(aggs))
     dev, span, n = present.device, present.shape[0], probe_valid.shape[0]
 
@@ -171,11 +243,12 @@ def _launch(slot_cols, present, m, probe_cols, probe_valid, probe_key, pred,
         if fn == "count":
             out[name] = cnt
         else:
-            out[name] = acc = empty(torch.int64 if fn == "sum" else torch.int32)
+            wide_out = fn == "sum" or c in wide
+            out[name] = acc = empty(torch.int64 if wide_out else torch.int32)
             outs.append(acc.data_ptr())
     out["__key"] = key
     if span:
-        ptrs = [(slot_cols[c] if side else probe_cols[c]).data_ptr()
+        ptrs = [(slot_cols[c] if side == 1 else probe_cols[c]).data_ptr()
                 for c, side in zip(names, sides)]
         args = [*ptrs, *codes, *outs]
         lib = _lib()
@@ -200,15 +273,15 @@ def join_aggregate(slot_cols: dict[str, torch.Tensor], present: torch.Tensor,
     raise.  Returns (out_cols with ``__key``, out_valid, escape) — escape
     only carries the int64 range check; there is no locality escape."""
     aggs = list(aggs)
-    i64_aggs = [c for c, fn, _ in aggs if fn != "count" and (
-        (c in slot_cols and slot_cols[c].dtype != torch.int32)
-        or (c not in slot_cols and probe_cols[c].dtype != torch.int32))]
-    if i64_aggs:
+    bad = unsupported_aggs(slot_cols, probe_cols, pred, aggs)
+    if bad:
         raise NotImplementedError(
-            f"join_agg: aggregated columns must be int32, got {i64_aggs}")
-    slot_cols, probe_cols, escape = _rebase_i64(slot_cols, present,
-                                                probe_cols, probe_valid)
-    _check(slot_cols, present, probe_cols, probe_valid, probe_key, aggs)
+            "join_agg: aggregated columns must be int32, or int64 probe "
+            f"columns under max that nothing compares; got {bad}")
+    slot_cols, probe_cols, escape = _rebase_i64(
+        slot_cols, present, probe_cols, probe_valid, _compared(pred))
+    _check(slot_cols, present, probe_cols, probe_valid, probe_key,
+           getattr(pred, "terms", None) or (), aggs)
     if m.dtype != torch.int32 or m.dim() != 0 or m.device != present.device:
         raise TypeError("join_agg: m must be a 0-d int32 tensor on the "
                         "slots' device")

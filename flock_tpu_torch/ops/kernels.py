@@ -9,7 +9,9 @@ inside the op.  PyTorch has real scatters (``index_add_``,
 ``scatter_reduce_``), so the plain forms are scatters; the blocked one-hot
 formulations the TPU needed have no counterpart here.  Dense int32
 aggregation goes to kernel K2 (``ops/dense_agg.py``), the probe side of a
-lookup join to kernel K3 (``ops/gather.py``).
+lookup join to kernel K3 (``ops/gather.py``).  q6's ``rank_in_group`` and
+``sorted_segment_aggregate`` are plain PyTorch, as the reference computes
+them in XLA, not Pallas.
 """
 
 from __future__ import annotations
@@ -321,6 +323,90 @@ def lookup_join(build_cols: dict[str, torch.Tensor], build_valid: torch.Tensor,
         sb = build_cols[src_name][order]
         out[take[src_name]] = torch.where(is_extra, sb[bsrc], pad(sb[loc]))
     return out, hit0E | is_extra, any_flag(ovf_b, ex_ovf), esc
+
+
+def _runs(start: torch.Tensor):
+    """(run, first): each row's run id and the index of its run's first row,
+    runs beginning where ``start`` is set (rows before the first run: run
+    -1, first 0).  ``first`` is the reference's running max of the start
+    indices (``lax.cummax``); ``torch.cummax`` takes 0.6 ms on 248 k rows on
+    the H100 (PERF.md), so each run's first index is scattered to the
+    run's id and gathered back instead."""
+    n = start.shape[0]
+    idx = torch.arange(n, device=start.device)
+    run = torch.cumsum(start.to(torch.int64), 0) - 1
+    first = torch.zeros(n + 1, dtype=torch.int64, device=start.device)
+    first.scatter_(0, torch.where(start, run, n), idx)
+    return run, torch.where(run >= 0, first[run.clamp(min=0)], 0)
+
+
+def rank_in_group(cols: dict[str, torch.Tensor], valid: torch.Tensor,
+                  group_key: str, order_col: str, descending: bool,
+                  rank_name: str, tiebreak: str | None = None):
+    """ROW_NUMBER() OVER (PARTITION BY group_key ORDER BY order_col), 1-based
+    (the reference's ``rank_in_group``): rows sort by (group asc, order asc
+    or desc, tiebreak asc), invalid rows last, and each row's rank is its
+    index less its segment's first index, plus one.  The output stays
+    sorted.  Returns (cols with ``rank_name``, valid)."""
+    keys = [group_key, order_col] + ([tiebreak] if tiebreak else [])
+    desc = (False, descending) + ((False,) if tiebreak else ())
+    scols, svalid = sort_rows(cols, valid, keys, desc)
+    _, first = _runs(_shift_ne(scols[group_key]) & svalid)
+    idx = torch.arange(svalid.shape[0], device=svalid.device)
+    return {**scols, rank_name: (idx - first + 1).to(torch.int32)}, svalid
+
+
+def sorted_segment_aggregate(cols: dict[str, torch.Tensor],
+                             valid: torch.Tensor, key: str, aggs):
+    """Grouped aggregation over rows already sorted by ``key`` (a Rank's
+    output), the reference's contract: each run of equal keys is a group,
+    invalid rows inside it contribute nothing, the group's aggregate lands
+    on the run's last row and every other row is invalid, the input's
+    capacity is kept, and it never overflows.  Returns (out_cols, out_valid,
+    overflow).
+
+    The reference's segmented scans become prefix sums: a row's running
+    value is the inclusive ``cumsum`` less the exclusive one at its run's
+    first row (``_runs``), all in int64, so
+    counts and integer sums are exact (count and count_sum wrap to int32 as
+    the reference's int32 scans do).  PyTorch has no segmented min/max scan:
+    min, max and float sums scatter onto the run id (``scatter_reduce_``,
+    ``index_add_``) and gather back, exact on every run's last row."""
+    k = cols[key]
+    n = k.shape[0]
+    dev = k.device
+    change = k[1:] != k[:-1]
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    start, end = torch.cat([one, change]), torch.cat([change, one])
+    run, first = _runs(start)
+
+    def running_sum(v):
+        inclusive = torch.cumsum(v, 0)
+        return inclusive - (inclusive - v)[first]
+
+    cnt = running_sum(valid.to(torch.int64)).to(torch.int32)
+    out = {key: k}
+    for in_col, fn, out_name in aggs:
+        if fn == "count":
+            out[out_name] = cnt
+            continue
+        v = cols[in_col]
+        if fn in ("count_sum", "sum") and not v.is_floating_point():
+            s = running_sum(torch.where(valid, v.to(torch.int64), 0))
+            out[out_name] = s.to(torch.int32) if fn == "count_sum" else s
+        elif fn == "sum":
+            acc = torch.zeros(n, dtype=torch.float32, device=dev).index_add_(
+                0, run, torch.where(valid, v.to(torch.float32), 0.0))
+            out[out_name] = acc[run]
+        elif fn in ("min", "max"):
+            sent = _dinfo(v).max if fn == "min" else _dinfo(v).min
+            acc = torch.full((n,), sent, dtype=v.dtype, device=dev)
+            acc.scatter_reduce_(0, run, torch.where(valid, v, sent),
+                                "amin" if fn == "min" else "amax")
+            out[out_name] = acc[run]
+        else:
+            raise ValueError(fn)
+    return out, end & (cnt > 0), false_flag(dev)
 
 
 def slot_join(build_cols: dict[str, torch.Tensor], build_valid: torch.Tensor,

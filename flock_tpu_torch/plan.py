@@ -1,11 +1,16 @@
 """Static operator DAG and its lowering to PyTorch — the counterpart of
 ``flock_tpu/plan.py`` for the node kinds the ported queries and their
-duplicate fallbacks reach (Scan, Filter, Project, Aggregate, Join,
-FusedJoinAggregate).
+duplicate fallbacks reach (Scan, Filter, Project, Aggregate, Join, Rank,
+FusedJoinAggregate; ``Sort`` and ``Compact`` come with the distributed
+executor).
 
-The node classes, ``fuse_join_aggregates``, ``walk``, ``_slot_dense`` and
-``dup_expand_capacity`` are the port's own copies (the TPU-only locality and
-limb hints are left out).  Lowering runs eagerly on the batches' device.
+The node classes, ``fuse_join_aggregates``, ``walk``, ``_sorted_by``,
+``_slot_dense``, ``referenced_columns`` and ``dup_expand_capacity`` are the
+port's own copies (the TPU-only locality and limb hints are left out).
+Lowering runs eagerly on the batches' device.  An Aggregate over a Rank on
+its key (q6's per-seller average) takes the sorted-segment path; a fused
+pass replays a middle Project whose callables read only probe columns
+(q6's ``__order``) on the probe side before kernel K1.
 
 Where the reference branches to the duplicate-faithful fallback on the
 device (``lax.cond``), the port returns the escape flag (duplicate build
@@ -29,7 +34,7 @@ import torch
 from flock_tpu_torch.batch import Batch
 from flock_tpu_torch.config import CONFIG
 from flock_tpu_torch.ops import kernels
-from flock_tpu_torch.ops.join_agg import join_aggregate
+from flock_tpu_torch.ops.join_agg import join_aggregate, unsupported_aggs
 
 Expr = Callable[[dict], torch.Tensor]
 
@@ -126,8 +131,23 @@ class Join(Node):
 
 
 @dataclass(frozen=True)
+class Rank(Node):
+    """ROW_NUMBER() OVER (PARTITION BY group ORDER BY order)."""
+
+    child: Node
+    group_key: str
+    order_col: str
+    descending: bool
+    rank_name: str
+    tiebreak: str | None = None
+
+    def inputs(self):
+        return (self.child,)
+
+
+@dataclass(frozen=True)
 class FusedJoinAggregate(Node):
-    """Join + (filters) + grouped aggregation in one pass (kernel K1) —
+    """Join + (filters, projections) + grouped aggregation in one pass (K1) —
     joined rows are never built.  Produced by ``fuse_join_aggregates`` when
     an Aggregate's primary group key is the join key of a lookup Join below
     it (the winning-bid core of q4).
@@ -150,11 +170,21 @@ class FusedJoinAggregate(Node):
 
 
 def _sorted_by(node: Node, key: str) -> bool:
-    """True when ``node``'s rows arrive grouped by ``key``: a Rank or Sort
-    on that key below order-preserving Filters and Projects (the
-    reference's ``_sorted_by``).  Rank and Sort are not ported yet, so no
-    node of the port qualifies and this is always False."""
-    return False
+    """True when ``node``'s rows arrive grouped by ``key``: a Rank on that
+    key below order-preserving Filters and Projects (the reference's
+    ``_sorted_by``; its ``Sort`` branch comes with the Sort node)."""
+    while True:
+        if isinstance(node, Filter):
+            node = node.child
+        elif isinstance(node, Project):
+            src = dict(node.exprs).get(key)
+            if not isinstance(src, str):
+                return False
+            key = src
+            node = node.child
+        else:
+            break
+    return isinstance(node, Rank) and node.group_key == key
 
 
 def _slot_dense(node: Node, key: str) -> bool:
@@ -235,6 +265,14 @@ def _lower_node(node: Node, tables, agg_capacity, fallback: bool,
 
     if isinstance(node, Aggregate):
         c = lower(node.child, tables, agg_capacity, fallback, memo)
+        if len(node.group_keys) == 1 \
+                and _sorted_by(node.child, node.group_keys[0]):
+            # rows arrive sorted by the key (a Rank below): segmented
+            # prefix sums, no scatter by key; the input capacity is kept
+            cols, valid, ovf = kernels.sorted_segment_aggregate(
+                c.cols, c.valid, node.group_keys[0], list(node.aggs))
+            return Lowered(cols, valid, kernels.any_flag(c.overflow, ovf),
+                           c.escape)
         cap = node.out_capacity or agg_capacity or c.valid.shape[0]
         cols, valid, ovf, esc = kernels.group_aggregate(
             c.cols, c.valid, list(node.group_keys), list(node.aggs), cap,
@@ -274,6 +312,13 @@ def _lower_node(node: Node, tables, agg_capacity, fallback: bool,
                        kernels.any_flag(b.overflow, p.overflow, ovf),
                        kernels.any_flag(b.escape, p.escape, esc))
 
+    if isinstance(node, Rank):
+        c = lower(node.child, tables, agg_capacity, fallback, memo)
+        cols, valid = kernels.rank_in_group(
+            c.cols, c.valid, node.group_key, node.order_col, node.descending,
+            node.rank_name, node.tiebreak)
+        return Lowered(cols, valid, c.overflow, c.escape)
+
     if isinstance(node, FusedJoinAggregate):
         return _lower_fused(node, tables, agg_capacity, fallback, memo)
 
@@ -292,38 +337,108 @@ def _fused_clean_aggs(node: FusedJoinAggregate) -> list:
     return aggs
 
 
-def _fused_pred(node: FusedJoinAggregate):
-    """The replayed chain between Join and Aggregate as one predicate: the
-    Join's post_filter and every middle Filter.  A conjunction of ``Conj``
-    terms stays a ``Conj`` (kernel K1 reads it); any other predicate stays
-    callable (the plain path evaluates it, the kernel refuses it)."""
-    preds = [node.join.post_filter] if node.join.post_filter is not None else []
+@dataclass
+class FusedReplay:
+    """The chain between a fused pass's Join and its Aggregate in kernel
+    K1's terms: ``probe_cols`` are the probe side's columns plus what a
+    middle Project computed from them, ``pred`` the Join's post_filter and
+    every middle Filter over those columns and the taken build columns (a
+    ``Conj`` when every part is one, else a callable), and ``aggs`` the
+    clean pass's aggregates over the same names."""
+
+    probe_cols: dict
+    pred: object
+    aggs: list
+
+
+def _renamed(pred, names: dict):
+    """``pred``, written over the chain's current column names, over the
+    replay's names; None when it reads a column the chain does not have,
+    or is a callable behind a Project that renamed columns."""
+    if isinstance(pred, Conj):
+        if any(c not in names for lhs, _, rhs in pred.terms
+               for c in (lhs, rhs)):
+            return None
+        return Conj(tuple((names[lhs], op, names[rhs])
+                          for lhs, op, rhs in pred.terms))
+    return pred if all(k == v for k, v in names.items()) else None
+
+
+def fused_replay(node: FusedJoinAggregate, b_cols, p_cols
+                 ) -> FusedReplay | None:
+    """Replay the middle chain on the probe side, or None when K1 cannot
+    take it.  Filters become predicate terms.  A Project's string
+    expressions are renames (resolved as ``fuse_join_aggregates`` resolves
+    keys); its callables are evaluated on the probe columns alone, before
+    K1, as one elementwise expression each (q6's ``__order``, which the
+    reference computes in XLA, outside Pallas).  A callable that reads a
+    taken build column raises KeyError there and sends the node to the
+    unfused path, as the reference's ``try`` around its replay does."""
+    slot_names = set(dict(node.join.take).values())
+    probe = dict(p_cols)
+    names = {c: c for c in p_cols}
+    names.update({c: c for c in slot_names})
+    preds = [] if node.join.post_filter is None else [node.join.post_filter]
     for nd in node.middle:
-        if not isinstance(nd, Filter):
-            raise NotImplementedError(
-                f"fused replay of {type(nd).__name__} is not ported")
-        preds.append(nd.pred)
+        if isinstance(nd, Filter):
+            pred = _renamed(nd.pred, names)
+            if pred is None:
+                return None
+            preds.append(pred)
+            continue
+        new = {}
+        for out, e in nd.exprs:
+            if isinstance(e, str):
+                if e not in names:
+                    return None
+                new[out] = names[e]
+                continue
+            view = {n: probe[b] for n, b in names.items()
+                    if b in probe and b not in slot_names}
+            try:
+                col = e(view)
+            except KeyError:
+                return None
+            base, i = out, 0
+            while base in probe or base in slot_names:
+                i += 1
+                base = f"{out}__{i}"
+            probe[base] = col
+            new[out] = base
+        names = new
+    aggs = []
+    for c, fn, o in _fused_clean_aggs(node):
+        if c is not None and c not in names:
+            return None
+        aggs.append((None if c is None else names[c], fn, o))
     if not preds:
-        return None
-    if all(isinstance(p, Conj) for p in preds):
-        return Conj(tuple(t for p in preds for t in p.terms))
-    return lambda cols: torch.stack([p(cols) for p in preds]).all(dim=0)
+        pred = None
+    elif all(isinstance(p, Conj) for p in preds):
+        pred = Conj(tuple(t for p in preds for t in p.terms))
+    else:
+        pred = lambda cols: torch.stack([p(cols) for p in preds]).all(dim=0)
+    return FusedReplay(probe, pred, aggs)
 
 
-def fused_supported(node: FusedJoinAggregate, b_cols, p_cols) -> bool:
-    """Static pre-check: the fused pass aggregates int32 columns only;
-    anything else takes the unfused path."""
-    take = dict(node.join.take)
-    named = {**p_cols, **{dst: b_cols[src] for src, dst in take.items()}}
-    return all(c is None or (c in named and named[c].dtype == torch.int32)
-               for c, fn, _ in _fused_clean_aggs(node) if fn != "count")
+def fused_supported(node: FusedJoinAggregate, b_cols,
+                    replay: FusedReplay | None) -> bool:
+    """Static pre-check: a chain K1 can replay, aggregating int32 columns
+    or an int64 probe column under max that nothing compares (the wrapper's
+    own rule, ``unsupported_aggs``); anything else takes the unfused
+    path."""
+    if replay is None:
+        return False
+    slots = {dst: b_cols[src] for src, dst in node.join.take}
+    return not unsupported_aggs(slots, replay.probe_cols, replay.pred,
+                                replay.aggs)
 
 
 def fused_local_pass(node: FusedJoinAggregate, b_cols, b_valid, p_cols,
-                     p_valid):
+                     p_valid, replay: FusedReplay):
     """The fused join + filter + aggregate core over already-lowered sides:
     build slotting (K2: max of the taken columns and the duplicate-key
-    flag), then the fused probe pass (K1).  Returns (out_cols, valid,
+    flag), then the fused probe pass (K1) over the replayed chain
+    (``fused_replay`` of the same sides).  Returns (out_cols, valid,
     slot_overflow, escape).  K1 counts only pairs on present slots, so its
     out_valid already lies within ``present``."""
     jn = node.join
@@ -340,8 +455,8 @@ def fused_local_pass(node: FusedJoinAggregate, b_cols, b_valid, p_cols,
     m = slots[jn.build_key][0]
     slot_cols = {dst: slots[src] for src, dst in take.items()}
     out, ovalid, esc = join_aggregate(
-        slot_cols, present, m, p_cols, p_valid, jn.probe_key,
-        _fused_pred(node), _fused_clean_aggs(node))
+        slot_cols, present, m, replay.probe_cols, p_valid, jn.probe_key,
+        replay.pred, replay.aggs)
     out[node.group_key] = out.pop("__key")
     return out, ovalid, ovf_b, kernels.any_flag(esc, esc_b, has_dups)
 
@@ -351,7 +466,8 @@ def _lower_fused(node: FusedJoinAggregate, tables, agg_capacity,
     jn = node.join
     b = lower(jn.build, tables, agg_capacity, fallback, memo)
     p = lower(jn.probe, tables, agg_capacity, fallback, memo)
-    if fallback or not fused_supported(node, b.cols, p.cols):
+    replay = None if fallback else fused_replay(node, b.cols, p.cols)
+    if not fused_supported(node, b.cols, replay):
         # the original Aggregate(...(Join)) subtree, sized to the fused span
         # (rows are (key, value) pairs either way — slot alignment differs,
         # semantics don't)
@@ -359,7 +475,7 @@ def _lower_fused(node: FusedJoinAggregate, tables, agg_capacity,
         fb_node = dataclasses.replace(node.fallback, out_capacity=span)
         return lower(fb_node, tables, span, fallback, memo)
     out, valid, ovf_b, esc = fused_local_pass(
-        node, b.cols, b.valid, p.cols, p.valid)
+        node, b.cols, b.valid, p.cols, p.valid, replay)
     return Lowered(out, valid, kernels.any_flag(b.overflow, p.overflow),
                    kernels.any_flag(b.escape, p.escape, esc, ovf_b))
 
@@ -387,6 +503,41 @@ def walk(root: Node):
 
     rec(root)
     return seen
+
+
+def referenced_columns(root: Node) -> set[str] | None:
+    """Over-approximate the set of column names a plan reads, or None when
+    it is not statically determinable (the reference's rule, kept so that
+    both engines stage the same columns: any Filter, post-filter or
+    callable expression gives None, a ``Conj`` included).  Drivers project
+    input tables down to these columns before staging them; the set may
+    hold non-scan names (aggregate outputs, aliases), which callers
+    intersect with the table's columns."""
+    cols: set[str] = set()
+    for n in walk(root):
+        if isinstance(n, Filter):
+            return None
+        if isinstance(n, Project):
+            for _, e in n.exprs:
+                if not isinstance(e, str):
+                    return None
+                cols.add(e)
+        elif isinstance(n, Aggregate):
+            cols.update(n.group_keys)
+            cols.update(c for c, _, _ in n.aggs if c is not None)
+            cols.update(f[5:] for _, f, _ in n.aggs if f.startswith("wmin:"))
+        elif isinstance(n, Join):
+            if n.post_filter is not None:
+                return None
+            cols.update((n.build_key, n.probe_key))
+            cols.update(src for src, _ in n.take)
+        elif isinstance(n, Rank):
+            cols.update((n.group_key, n.order_col))
+            if n.tiebreak:
+                cols.add(n.tiebreak)
+        elif isinstance(n, FusedJoinAggregate):
+            return None  # pre-fusion plans only; fusion happens at compile
+    return cols
 
 
 def fuse_join_aggregates(node: Node) -> Node:
@@ -442,7 +593,7 @@ def fuse_join_aggregates(node: Node) -> Node:
                         join=join, middle=tuple(reversed(chain)),
                         group_key=key, aggs=n.aggs, fallback=n,
                         out_capacity=n.out_capacity, group_key2=key2)
-        if isinstance(n, (Aggregate, Filter, Project)):
+        if isinstance(n, (Aggregate, Filter, Project, Rank)):
             return dataclasses.replace(n, child=rewrite(n.child))
         if isinstance(n, Join):
             return dataclasses.replace(n, build=rewrite(n.build),

@@ -1,10 +1,11 @@
 """NEXMark query plans with torch expressions — the counterpart of
 ``flock_tpu/queries/nexmark.py`` (``QuerySpec``, ``_winning_bid_interval``
-and q0–q5, q7–q10, q13; q6, q11 and q12 are later slices of the port).
+and q0–q10, q12, q13; q11, over session windows, is a later slice of the
+port).
 
-Window per query, as in the reference (main.rs:116-122): q0–q4, q9, q10
-and q13 element-wise (one window per epoch), q5 hopping (10 s, hop 5 s),
-q7 and q8 tumbling (10 s).
+Window per query, as in the reference (main.rs:116-122): q0–q4, q6, q9,
+q10 and q13 element-wise (one window per epoch), q5 hopping (10 s, hop
+5 s), q7 and q8 tumbling (10 s), q12 processing-time (10 s of arrival).
 
 - q0.sql: every bid (pass-through); q10.sql the same columns, projected.
 - q1.sql: every bid with its price in another currency, ``0.908 * price``.
@@ -18,11 +19,20 @@ q7 and q8 tumbling (10 s).
   expiry.  The device computes the average in f32 beside the exact integer
   sum and count; the sink recomputes it in f64 from those.
 - q5.sql: the auctions with the most bids in each window.
+- q6.sql: each seller's average winning price over their last 10 closed
+  auctions.  The winning bid of an auction packs (price desc, time asc)
+  into one int64 ``__order`` whose max the fused pass takes (kernel K1's
+  int64 max); a Rank per seller by time keeps the last 10, and the
+  average's exact integer sum and count reach the sink, which divides in
+  f64.
 - q7.sql: the bids at the window's highest price.
 - q8.sql: the persons who opened an auction in the window (new persons ⋈
   distinct sellers, both slotted over person ids: ``kernels.slot_join``).
 - q9.sql: the winning bids themselves (every bid whose price equals its
   auction's winning price).
+- q12.sql: per bidder, the bids and the first and last arrival second of
+  each 10 s processing-time window (``p_time``, the arrival epoch in ms,
+  made on the device by the executor's ``execute_consts``).
 - q13.sql: every bid joined to a bounded side-input table on its auction id.
 """
 
@@ -36,12 +46,14 @@ from flock_tpu_torch.batch import Schema
 from flock_tpu_torch.datagen.nexmark import (FIRST_NAMES, LAST_NAMES,
                                              US_CITIES, US_STATES)
 from flock_tpu_torch.plan import (Aggregate, Conj, Filter, Join, Node, Project,
-                                  Scan)
+                                  Rank, Scan)
 
 # state dictionary codes (vocabulary order: az,ca,id,or,wa,wy)
 _CA, _ID, _OR = US_STATES.index("ca"), US_STATES.index("id"), US_STATES.index("or")
 
 NAME_VOCAB = [f"{f} {l}" for f in FIRST_NAMES for l in LAST_NAMES]
+
+PTIME_WINDOW_S = 10  # q12's processing-time window (the reference's default)
 
 
 @dataclass(frozen=True)
@@ -49,7 +61,8 @@ class QuerySpec:
     number: int
     plan: Node
     window: tuple  # ("elementwise",) | ("tumbling", s) | ("hopping", w, h) |
-    #               ("sliding", w, slide) | ("stagger", w) | ("rows", n)
+    #               ("sliding", w, slide) | ("stagger", w) | ("rows", n) |
+    #               ("session", gap) | ("global", s)
     #               — see flock_tpu_torch/window.py
     relations: tuple[str, ...]
     schema: Schema  # output schema (column order + dictionaries + ts cols)
@@ -169,6 +182,50 @@ def q5() -> QuerySpec:
                      Schema(["auction", "num"]))
 
 
+def q6() -> QuerySpec:
+    # the winning bid per auction is an argmax: (price desc, b_date_time
+    # asc) packs into price << 32 | (2^32 - 1 - b_date_time), whose max per
+    # auction the fused pass takes; __order reads only bid columns, so the
+    # fused replay computes it on the probe side before K1
+    joined = _winning_bid_interval((("seller", "seller"),))
+    with_key = Project(joined, (
+        ("auction", "auction"), ("seller", "seller"),
+        ("__order", lambda c: (c["price"].to(torch.int64) << 32)
+         | (0xFFFFFFFF - c["b_date_time"].to(torch.int64))),
+    ))
+    # seller rides a winner-carry (min seller over the rows at the max
+    # __order): a plain max while auction ids are unique, and the SQL
+    # tiebreak (price desc, time asc, seller asc) when duplicate auction
+    # rows carry different sellers (the fan-out rerun)
+    win_agg = Aggregate(with_key, group_keys=("auction",),
+                        aggs=(("__order", "max", "__order"),
+                              ("seller", "wmin:__order", "seller")))
+    winners = Project(win_agg, (
+        ("auction", "auction"), ("seller", "seller"),
+        ("price", lambda c: (c["__order"] >> 32).to(torch.int32)),
+        ("b_date_time", lambda c: (0xFFFFFFFF - (c["__order"] & 0xFFFFFFFF))
+         .to(torch.int32)),
+    ))
+    time_rank = Rank(winners, group_key="seller", order_col="b_date_time",
+                     descending=True, rank_name="time_rank",
+                     tiebreak="auction")
+    last10 = Filter(time_rank, lambda c: c["time_rank"] <= 10,
+                    "time_rank<=10")
+    # sorted by seller after the Rank: the sorted-segment aggregation
+    per_seller = Aggregate(last10, group_keys=("seller",),
+                           aggs=(("price", "sum", "sum_price"),
+                                 (None, "count", "cnt")))
+    plan = Project(per_seller, (
+        ("seller", "seller"),
+        ("avg_price", lambda c: c["sum_price"].to(torch.float32)
+         / c["cnt"].clamp(min=1).to(torch.float32)),
+        ("sum_price", "sum_price"),  # exact basis for the sink's f64 division
+        ("cnt", "cnt"),
+    ))
+    return QuerySpec(6, plan, ("elementwise",), ("auction", "bid"),
+                     Schema(["seller", "avg_price"]))
+
+
 def q7() -> QuerySpec:
     # the max price over one constant key (K2), gathered to every bid (K3)
     with_const = Project(Scan("bid"), (
@@ -239,6 +296,18 @@ def q10() -> QuerySpec:
                             timestamp_cols=("b_date_time",)))
 
 
+def q12() -> QuerySpec:
+    # p_time is attached by the stream driver (the arrival epoch in ms, one
+    # constant per staged chunk); the plan groups per bidder within the
+    # processing-time window
+    plan = Aggregate(Scan("bid"), group_keys=("bidder",),
+                     aggs=((None, "count", "bid_count"),
+                           ("p_time", "min", "start_time"),
+                           ("p_time", "max", "end_time")))
+    return QuerySpec(12, plan, ("global", PTIME_WINDOW_S), ("bid",),
+                     Schema(["bidder", "bid_count", "start_time", "end_time"]))
+
+
 def q13() -> QuerySpec:
     # q13.sql joins ON auction = key directly.  side_input is a bounded
     # (key int32, value int32) table the runtime stages once per run
@@ -256,8 +325,8 @@ def q13() -> QuerySpec:
                              "value"], timestamp_cols=("b_date_time",)))
 
 
-QUERIES = {0: q0, 1: q1, 2: q2, 3: q3, 4: q4, 5: q5, 7: q7, 8: q8, 9: q9,
-           10: q10, 13: q13}
+QUERIES = {0: q0, 1: q1, 2: q2, 3: q3, 4: q4, 5: q5, 6: q6, 7: q7, 8: q8,
+           9: q9, 10: q10, 12: q12, 13: q13}
 
 
 def get_query(n: int) -> QuerySpec:

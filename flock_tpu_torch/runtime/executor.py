@@ -1,6 +1,6 @@
 """Single-device executor — the counterpart of ``LocalExecutor``,
-``_pow2_bucket`` and ``materialize_columns`` in
-``flock_tpu/runtime/executor.py``.
+``_pow2_bucket``, ``_consts_fast_shape``, the two consts runners and
+``materialize_columns`` in ``flock_tpu/runtime/executor.py``.
 
 Host columns → fixed-capacity device Batches → the plan run eagerly on the
 device → host materialization with timestamp restore and the exact f64 sink
@@ -14,8 +14,17 @@ or an int64 column too wide to rebase to int32) reruns the plan with the
 duplicate-faithful fallback and the unrebased scatter, and is counted in
 ``fallback_runs``.
 
-``execute_stacked``, ``execute_session_tables``, ``execute_consts`` and the
-session state are later slices of the port.
+``execute_consts`` runs a processing-time window (q12): staged chunks and
+one constant int32 column per chunk (``p_time``, the arrival epoch in ms),
+made on the device.  A single-key Aggregate over the driving scan whose
+other aggregates read only those constants takes the fast runner: one
+count per chunk on kernel K2, shifted to the window's base key on the
+device and summed, the constants' min/max/sum derived from the counts.
+Any other plan runs over the chunks concatenated, with the constants
+filled in (``torch.full``).
+
+``execute_stacked``, ``execute_session_tables`` and the session state are
+later slices of the port.
 """
 
 from __future__ import annotations
@@ -28,7 +37,8 @@ import torch
 from flock_tpu_torch import resolve_device
 from flock_tpu_torch.batch import TS_BASE, Batch, round_up
 from flock_tpu_torch.config import CONFIG
-from flock_tpu_torch.plan import compile_plan
+from flock_tpu_torch.ops import kernels
+from flock_tpu_torch.plan import Aggregate, Scan, compile_plan
 from flock_tpu_torch.queries.nexmark import QuerySpec
 from flock_tpu_torch.runtime.tables import default_side_input, window_relations
 
@@ -45,6 +55,73 @@ def _pow2_bucket(n: int) -> int:
     while c < n:
         c *= 2
     return c
+
+
+_I64_MAX, _I64_MIN = 2**63 - 1, -(2**63)
+
+
+def _consts_fast_shape(plan, rel: str, const_names, key_dtype=None) -> bool:
+    """True when the plan is a single-key Aggregate over the driving scan
+    whose other aggregates read only per-chunk constant columns — q12's
+    shape: min/max/sum of a constant follow from per-chunk counts.
+    ``key_dtype`` guards the runner's int32 key cast: any key but int32
+    takes the general runner."""
+    if not (isinstance(plan, Aggregate) and isinstance(plan.child, Scan)
+            and plan.child.relation == rel and len(plan.group_keys) == 1):
+        return False
+    if key_dtype is not None and key_dtype != torch.int32:
+        return False
+    return all(fn == "count" or (c in const_names
+                                 and fn in ("min", "max", "sum"))
+               for c, fn, _ in plan.aggs)
+
+
+def _run_plan_consts_fast(plan, agg_capacity: int, chunks: list[Batch],
+                          const_names: tuple[str, ...], const_vals):
+    """The fast runner: one count per chunk (kernel K2, slotted at the
+    chunk's own minimum key), each shifted to the window's base ``m`` and
+    summed, and the constants' aggregates derived from the counts.  ``m``,
+    the shifts and the overflow stay on the device: a chunk's count moves
+    by an index made from ``arange`` and its device offset, clamped as the
+    reference's slice start.  Returns (Batch, overflow)."""
+    key = plan.group_keys[0]
+    cap = agg_capacity
+    dev = chunks[0].valid.device
+    m = torch.stack([torch.where(ch.valid, ch.columns[key].to(torch.int64),
+                                 _I64_MAX).amin()
+                     for ch in chunks]).amin().to(torch.int32)
+    slots = torch.arange(cap, device=dev)
+    over, cnts = [], []
+    for ch in chunks:
+        k32 = ch.columns[key].to(torch.int32)
+        out, _, _, esc = kernels.dense_group_aggregate(
+            {key: k32}, ch.valid, key, [(None, "count", "__fast_cnt")], cap)
+        cmin = torch.where(ch.valid, k32, kernels.I32_MAX).amin()
+        # a key at or beyond the shared base's capacity would be cut off by
+        # the shift: overflow
+        over += [esc, torch.where(ch.valid, k32, m).amax() - m >= cap]
+        off = torch.where(ch.valid.any(), cmin - m, 0).clamp(0, cap)
+        src = slots - off
+        cnt = out["__fast_cnt"]
+        cnts.append(torch.where(src >= 0, cnt[src.clamp(min=0)], 0))
+    total = torch.stack(cnts).sum(0, dtype=torch.int32)
+    cols = {key: (m.to(torch.int64) + slots).to(torch.int32)}
+    idx = {nm: j for j, nm in enumerate(const_names)}
+    for c, fn, name in plan.aggs:
+        if fn == "count":
+            cols[name] = total
+            continue
+        vals = [int(const_vals[i][idx[c]]) for i in range(len(chunks))]
+        if fn == "sum":
+            cols[name] = torch.stack([cnt.to(torch.int64) * v
+                                      for cnt, v in zip(cnts, vals)]).sum(0)
+            continue
+        sent = _I64_MAX if fn == "min" else _I64_MIN
+        per = torch.stack([torch.where(cnt > 0, v, sent)
+                           for cnt, v in zip(cnts, vals)])
+        red = per.amin(0) if fn == "min" else per.amax(0)
+        cols[name] = red.to(torch.int32)
+    return Batch(cols, total > 0), kernels.any_flag(*over)
 
 
 @dataclass
@@ -153,6 +230,49 @@ class LocalExecutor:
         rows."""
         return Batch.from_numpy(cols, capacity, self.device)
 
+    def execute_consts(self, chunks: list[Batch],
+                       const_cols: dict[str, list],
+                       agg_capacity: int) -> Batch:
+        """Run the plan over staged chunks plus one constant int32 column
+        per name and chunk (``const_cols[name][i]`` for chunk i), at
+        ``agg_capacity`` slots: the fast runner when the plan has
+        ``_consts_fast_shape``, else the plan over the concatenated chunks
+        with the constants made on the device.  Raises OverflowError when a
+        key lies at or beyond the window's base plus the capacity."""
+        names = tuple(sorted(const_cols))
+        vals = np.asarray([[const_cols[nm][i] for nm in names]
+                           for i in range(len(chunks))], np.int32)
+        plan = self.spec.plan
+        keys = getattr(plan, "group_keys", None)
+        key_dt = chunks[0].columns[keys[0]].dtype \
+            if keys and keys[0] in chunks[0].columns else None
+        rel = self._driving_relation()
+        if _consts_fast_shape(plan, rel, names, key_dtype=key_dt):
+            out, overflow = _run_plan_consts_fast(plan, agg_capacity, chunks,
+                                                  names, vals.tolist())
+            if bool(overflow):
+                raise OverflowError(
+                    f"q{self.spec.number}: const-epoch capacity exceeded "
+                    f"(agg={agg_capacity})")
+            return out
+        return self._run_plan_consts(chunks, rel, names, vals, agg_capacity)
+
+    def _run_plan_consts(self, chunks: list[Batch], rel: str,
+                         names: tuple[str, ...], vals: np.ndarray,
+                         agg_capacity: int) -> Batch:
+        """The general runner: the chunks concatenated on the device, each
+        constant filled per chunk (``torch.full``), then the plan."""
+        cols = {c: torch.cat([ch.columns[c] for ch in chunks])
+                for c in chunks[0].columns}
+        for j, name in enumerate(names):
+            cols[name] = torch.cat([
+                torch.full((ch.capacity,), int(vals[i, j]), dtype=torch.int32,
+                           device=ch.valid.device)
+                for i, ch in enumerate(chunks)])
+        batch = Batch(cols, torch.cat([ch.valid for ch in chunks]))
+        return self._run({rel: batch}, agg_capacity, True,
+                         lambda: f"const-epoch, {len(chunks)} chunks")
+
     def _driving_relation(self) -> str:
         rels = window_relations(self.spec.relations)
         if len(rels) != 1:
@@ -181,10 +301,13 @@ def materialize_columns(spec: QuerySpec, host: dict[str, np.ndarray]
             elif kind == "div":
                 v = host[a].astype(np.float64) / np.maximum(host[b], 1)
         # the hand-built queries' recipes (as in the reference): q1's money
-        # column from its cents, q4's average from its exact sum and count
+        # column from its cents, q4's and q6's averages from their exact
+        # sums and counts
         elif name == "price" and "price_cents" in host:
             v = 0.908 * host["price_cents"].astype(np.float64)
         elif name == "avg_final" and "sum_final" in host:
             v = host["sum_final"].astype(np.float64) / host["cnt"]
+        elif name == "avg_price" and "sum_price" in host:
+            v = host["sum_price"].astype(np.float64) / host["cnt"]
         result[name] = v
     return result

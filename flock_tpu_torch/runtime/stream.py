@@ -1,15 +1,21 @@
 """Stream driver — the counterpart of ``flock_tpu/runtime/stream.py``:
 ``generate_epochs`` and a ``StreamDriver`` for the range windows
-(element-wise, tumbling, hopping, sliding, stagger) and row-count windows,
-with q13's side input staged once per driver.
+(element-wise, tumbling, hopping, sliding, stagger), row-count windows and
+processing-time (global) windows, with q13's side input staged once per
+driver.
 
 Range windows stage every epoch on the device once, at uniform per-epoch
 capacities, and concatenate a window's epochs on the device
 (``LocalExecutor.execute_epochs``): overlapping hopping and sliding windows
 reuse their epochs without another transfer.  On overflow the per-epoch
 capacities double, every epoch is staged again and the window retries.
-Row-count windows pack the driving relation's rows on the host.  Session
-and global windows are later slices of the port.
+Row-count windows pack the driving relation's rows on the host.
+Processing-time windows (q12) group arrival epochs: each epoch's projected
+driving table is staged once (``prestage`` stages them all ahead of the
+run, as bench.py times it), and a window runs through
+``LocalExecutor.execute_consts`` as soon as it completes, with its
+processing time made on the device.  Session windows are a later slice of
+the port and raise.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from flock_tpu_torch.batch import Batch, round_up
 from flock_tpu_torch.config import CONFIG
 from flock_tpu_torch.datagen.native_gen import nexmark_generate_partition
 from flock_tpu_torch.datagen.nexmark import NexmarkConfig
+from flock_tpu_torch.plan import Aggregate, referenced_columns, walk
 from flock_tpu_torch.queries.nexmark import QuerySpec, get_query
 from flock_tpu_torch.runtime.executor import (LocalExecutor, OverflowError,
                                               _pow2_bucket)
@@ -54,6 +61,22 @@ def generate_epochs(seconds: int, events_per_second: int, generators: int = 1
             per_epoch[e.epoch].append(epoch_to_relations(e))
     return [concat_relations(per_epoch.get(t, []), ("person", "auction", "bid"))
             for t in range(seconds)]
+
+
+def _bucket_cap_fine(n: int) -> int:
+    """1/8-octave capacity bucket (8..15 sixteenths of a power of two past
+    1024): output buffers track the observed span within ~12 % instead of
+    up to 2x, with 8 buckets per octave (copy of the reference's)."""
+    c = 128
+    while c < n:
+        c *= 2
+    if c <= 1024:
+        return c
+    step = c // 16
+    m = c // 2
+    while m < n:
+        m += step
+    return m
 
 
 @dataclass
@@ -141,10 +164,16 @@ class StreamDriver:
 
     # -- execution ------------------------------------------------------------
 
-    def run(self, epochs: list[dict]) -> list[WindowResult]:
+    def run(self, epochs: list[dict],
+            prestaged: list | None = None) -> list[WindowResult]:
+        """Every window of the stream, in order.  ``prestaged`` (from
+        ``prestage``) holds processing-time windows' staged epochs, so the
+        run stages nothing; other window kinds stage their own."""
         kind = self.spec.window[0]
-        if kind in ("session", "global"):
-            raise NotImplementedError(f"{kind} windows are not ported yet")
+        if kind == "session":
+            raise NotImplementedError("session windows are not ported yet")
+        if kind == "global":
+            return self._run_global(epochs, prestaged)
         if kind == "rows":
             return self._run_rows(epochs)
         return self._run_ranges(epochs)
@@ -244,6 +273,93 @@ class StreamDriver:
                     tag, tables,
                     {r: _pow2_bucket(_rows(c)) for r, c in tables.items()})
                 for tag, tables in self._row_windows(epochs)]
+
+    # -- processing-time windows (q12) ----------------------------------------
+
+    def _needed_cols(self, table: dict) -> dict:
+        """``table`` cut to the columns the plan reads before it is staged
+        (projection pushdown), less ``p_time``, which the executor makes on
+        the device."""
+        refs = referenced_columns(self.spec.plan)
+        keep = None if refs is None else refs | set(self.spec.schema.names)
+        return {k: v for k, v in table.items()
+                if k != "p_time" and (keep is None or k in keep)}
+
+    def prestage(self, epochs: list[dict]) -> list:
+        """Each epoch's projected driving table on the device ahead of the
+        run (None for an empty epoch), at the reference's capacity
+        ``_pow2_bucket(rows)``: what ``run(epochs, prestaged=...)`` takes.
+        The session branch comes with session windows."""
+        if self.spec.window[0] == "session":
+            raise NotImplementedError("session windows are not ported yet")
+        rel = self.executor._driving_relation()
+        out = []
+        for tables in epochs:
+            cols = self._needed_cols(tables[rel])
+            n = _rows(cols)
+            out.append(self.executor.stage_chunk(cols, _pow2_bucket(n))
+                       if n else None)
+        return out
+
+    def _run_global(self, epochs, prestaged=None) -> list[WindowResult]:
+        """Processing-time windows: each window of w arrival epochs runs as
+        soon as it completes, holding only its own staged epochs.  Its
+        processing time is made on the device from the arrival epoch (one
+        constant per staged epoch), so nothing per row moves at emission;
+        the aggregate is sized to the window's observed key span, and on
+        overflow its capacity quadruples (six attempts)."""
+        w = self.spec.window[1]
+        rel = self.executor._driving_relation()
+        # the span key is the plan's single group key (q12: bidder)
+        span_keys = [n.group_keys[0] for n in walk(self.spec.plan)
+                     if isinstance(n, Aggregate) and len(n.group_keys) == 1
+                     and n.group_keys[0] != "p_time"]
+        if not span_keys:
+            raise ValueError(
+                "processing-time driver needs a single-key aggregation")
+        span_key = span_keys[0]
+        out: list[WindowResult] = []
+        pending: list[tuple] = []  # (t, staged Batch, key_min, key_max)
+        start = 0
+
+        def emit(start: int) -> WindowResult | None:
+            if not pending:
+                return None
+            chunks = [b for _, b, _, _ in pending]
+            p_times = [t * 1000 for t, _, _, _ in pending]
+            span = (max(mx for *_, mx in pending)
+                    - min(mn for _, _, mn, _ in pending) + 1)
+            agg_cap = _bucket_cap_fine(span + CONFIG.agg_span_margin)
+            pending.clear()
+            for attempt in range(_WIDENS + 1):
+                try:
+                    b = self.executor.execute_consts(
+                        chunks, {"p_time": p_times}, agg_cap)
+                    break
+                except OverflowError:
+                    if attempt == _WIDENS:
+                        raise
+                    agg_cap *= 4
+            return WindowResult(("ptime", start, start + w),
+                                self.executor.materialize(b))
+
+        for t, tables in enumerate(epochs):
+            if t - start >= w:
+                r = emit(start)
+                if r is not None:
+                    out.append(r)
+                start = t
+            cols = self._needed_cols(tables[rel])
+            keys = cols[span_key]
+            if not len(keys):
+                continue
+            staged = prestaged[t] if prestaged is not None \
+                else self.executor.stage_chunk(cols, _pow2_bucket(len(keys)))
+            pending.append((t, staged, int(keys.min()), int(keys.max())))
+        r = emit(start)
+        if r is not None:
+            out.append(r)
+        return out
 
 
 def run_nexmark(query: int, seconds: int = 2, events_per_second: int = 1000,

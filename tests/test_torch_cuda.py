@@ -22,8 +22,9 @@ from flock_tpu_torch.datagen.ysb import YsbConfig
 from flock_tpu_torch.queries.nexmark import get_query
 from flock_tpu_torch.queries.ysb import run_ysb
 from flock_tpu_torch.runtime.stream import StreamDriver, generate_epochs
-from torch_kernel_cases import (K1_AGGS, K1_CASES, K1_TERMS, K2_AGGS,
-                                K2_CASES, K3_CASES, k1_case, k2_case, k3_case)
+from torch_kernel_cases import (K1_AGGS, K1_CASES, K1_I64_AGGS, K1_I64_CASES,
+                                K1_TERMS, K2_AGGS, K2_CASES, K3_CASES, k1_case,
+                                k1_i64_case, k1_i64_numpy, k2_case, k3_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -119,6 +120,29 @@ def test_join_agg_unaligned_columns_equal_plain(dev, case):
     _k1_same(dev, *k1_case(case, span=248_192, n=500_000), offset=1)
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("case", K1_I64_CASES)
+def test_join_agg_int64_max_equals_plain(dev, case, offset):
+    """K1's int64 max (kMax64) at the card's size: extremes, negative
+    values, values that differ only in their low or high 32 bits, one
+    slot, keys K1's window misses (global 64-bit atomics), no valid row;
+    also with the int32 probe columns off a 16-byte boundary.  Equal to the
+    plain version and to numpy, INT64_MIN on every empty slot."""
+    slots, present, m, probe, pvalid = k1_i64_case(
+        case, span=248_192, n=1_000_000, seed=len(case))
+    args = (_on(dev, slots), _on(dev, present),
+            torch.tensor(int(m), dtype=torch.int32, device=dev),
+            _on(dev, probe, offset), _on(dev, pvalid, offset), "k",
+            Conj(K1_TERMS), K1_I64_AGGS)
+    got, gvalid, esc = join_aggregate(*args)
+    want, wvalid = join_agg_plain(*args)
+    _same(got, want)
+    assert torch.equal(gvalid, wvalid) and not bool(esc)
+    omax, cnt = k1_i64_numpy(slots, present, m, probe, pvalid)
+    np.testing.assert_array_equal(got["omax"].cpu().numpy(), omax)
+    np.testing.assert_array_equal(got["c"].cpu().numpy(), cnt)
+
+
 @pytest.mark.parametrize("case", K2_CASES)
 def test_dense_agg_adversarial_equals_plain(dev, case):
     """Both variants on both sides of the shared-memory limit, every lane on
@@ -196,8 +220,14 @@ def test_fused_pass_valid_within_present_on_card(dev):
     pvalid = rng.random(n) < 0.95
     node = next(x for x in plan.walk(plan.fuse_join_aggregates(
         get_query(4).plan)) if isinstance(x, plan.FusedJoinAggregate))
-    runs = [plan.fused_local_pass(node, _on(d, b), _on(d, bvalid), _on(d, p),
-                                  _on(d, pvalid)) for d in (dev, "cpu")]
+
+    def fused(d):
+        b_cols, p_cols = _on(d, b), _on(d, p)
+        return plan.fused_local_pass(node, b_cols, _on(d, bvalid), p_cols,
+                                     _on(d, pvalid),
+                                     plan.fused_replay(node, b_cols, p_cols))
+
+    runs = [fused(d) for d in (dev, "cpu")]
     (gout, gvalid, _, gesc), (cout, cvalid, _, cesc) = runs
     assert not bool(gesc) and not bool(cesc)
     assert torch.equal(gvalid.cpu(), cvalid) and cvalid.any()
@@ -405,6 +435,39 @@ def test_lookup_join_queries_on_the_card_equal_cpu(dev, q, seconds, eps, gens,
     q3's person join and q13's side-input join slot with K2 first.  Only
     q9's G=3 window holds duplicate build keys (auction ids)."""
     assert _card_and_cpu(dev, q, seconds, eps, gens) == reruns
+
+
+@pytest.mark.parametrize("q,seconds,eps,gens,reruns", [
+    (6, 2, 20_000, 1, 0), (6, 10, 350, 3, 1), (12, 12, 20_000, 1, 0)])
+def test_q6_and_q12_on_the_card_equal_cpu(dev, q, seconds, eps, gens, reruns):
+    """q6's fused pass (K2 slotting, K1 with the int64 max of ``__order``)
+    and its rerun over duplicate auction ids; q12's processing-time windows
+    (one K2 count per chunk)."""
+    assert _card_and_cpu(dev, q, seconds, eps, gens) == reruns
+
+
+def test_consts_runners_agree_on_the_card(dev):
+    """q12's fast runner against the general one on the same staged chunks
+    on the card, and both against the CPU's fast runner."""
+    epochs = generate_epochs(10, 50_000, 1)
+    outs = []
+    for device in (dev, "cpu"):
+        driver = StreamDriver(get_query(12), 10, device=device)
+        staged = driver.prestage(epochs)
+        consts = {"p_time": [t * 1000 for t in range(10)]}
+        ex = driver.executor
+        fast = ex.execute_consts(staged, consts, 300_000)
+        general = ex._run_plan_consts(
+            staged, "bid", ("p_time",),
+            np.asarray([[p] for p in consts["p_time"]], np.int32), 300_000)
+        outs += [fast, general]
+    ref = outs[2]
+    assert bool(ref.valid.any())
+    for b in outs:
+        assert torch.equal(b.valid.cpu(), ref.valid)
+        for name, col in ref.columns.items():
+            assert torch.equal(b.columns[name].cpu()[ref.valid],
+                               col[ref.valid]), name
 
 
 @pytest.mark.parametrize("n", [1, 1003, 2_000_000])

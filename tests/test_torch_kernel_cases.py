@@ -131,9 +131,12 @@ def test_fused_pass_valid_lies_within_present():
     with no ``& present``, equals the reference's ``ovalid & present`` on a
     window where many bids hit absent slots."""
     b, bvalid, p, pvalid = _absent_slot_window()
+    node = _fused_node(plan, get_query(4))
+    b_cols, p_cols = ({k: _t(v) for k, v in b.items()},
+                      {k: _t(v) for k, v in p.items()})
     out, valid, ovf, esc = plan.fused_local_pass(
-        _fused_node(plan, get_query(4)), {k: _t(v) for k, v in b.items()},
-        _t(bvalid), {k: _t(v) for k, v in p.items()}, _t(pvalid))
+        node, b_cols, _t(bvalid), p_cols, _t(pvalid),
+        plan.fused_replay(node, b_cols, p_cols))
     r_out, r_valid, _, r_esc, _ = ref_plan.fused_local_pass(
         _fused_node(ref_plan, ref_get_query(4)),
         {k: jnp.asarray(v) for k, v in b.items()}, jnp.asarray(bvalid),

@@ -1,10 +1,11 @@
-"""Adversarial inputs for kernels K1 (fused join-aggregate), K2 (dense
-grouped aggregate) and K3 (probe-side gather), numpy arrays made from a
-seed.  Shared by the CPU tests (``test_torch_kernel_cases.py``,
-``test_torch_gather_cases.py``: the plain versions against flock_tpu and
-numpy) and the card tests (``test_torch_cuda.py``: the kernels against their
-plain versions, at sizes past K1's 2048-row tile and 2048-slot window).
-Imports neither JAX nor torch."""
+"""Adversarial inputs for kernels K1 (fused join-aggregate, its int64 max
+included), K2 (dense grouped aggregate) and K3 (probe-side gather), numpy
+arrays made from a seed.  Shared by the CPU tests
+(``test_torch_kernel_cases.py``, ``test_torch_gather_cases.py``,
+``test_torch_join_agg_i64.py``: the plain versions against flock_tpu and
+numpy), the card tests (``test_torch_cuda.py``: the kernels against their
+plain versions, at sizes past K1's 1024-row tile and 2048-slot window) and
+``chip_smoke.py`` (K1's int64 cases).  Imports neither JAX nor torch."""
 
 import numpy as np
 
@@ -62,6 +63,68 @@ def k1_case(name: str, span: int = 4096, n: int = 8192, seed: int = 0):
     valid &= name != "all_invalid"
     return ({"ats": ats, "exp": exp, "cat": cat}, present, np.int32(m), probe,
             valid)
+
+
+I64_MIN, I64_MAX = -(2**63), 2**63 - 1
+
+# K1's int64 max (q6's __order): the int64 probe column "o" under max beside
+# an int32 probe max and a slot-column carry, with q4's interval predicate
+K1_I64_AGGS = [(None, "count", "c"), ("o", "max", "omax"),
+               ("price", "max", "mx"), ("cat", "max", "cat")]
+
+K1_I64_CASES = (
+    "extremes",        # INT64_MIN, INT64_MAX and their neighbours among others
+    "negative",        # every value negative
+    "low_bits",        # equal high 32 bits: only the low words (some with
+                       # their top bit set) decide
+    "high_bits",       # equal low 32 bits: only the signed high words decide
+    "one_slot",        # every pair on one slot
+    "outside_window",  # keys far behind the frontier and before m: K1's
+                       # window misses them (the global-atomic path)
+    "all_invalid",
+)
+
+
+def k1_i64_case(name: str, span: int = 4096, n: int = 8192, seed: int = 0):
+    """(slot_cols, present, m, probe_cols, probe_valid): ``k1_case``'s
+    shapes with an int64 probe column ``o``."""
+    # keys near the frontier unless the case says otherwise
+    base = {"one_slot": "one_slot", "outside_window": "behind_and_before",
+            "all_invalid": "all_invalid"}.get(name, "near")
+    slots, present, m, probe, valid = k1_case(base, span, n, seed)
+    rng = np.random.default_rng(seed + 1)
+    if name == "extremes":
+        pool = np.array([I64_MIN, I64_MIN + 1, I64_MAX, I64_MAX - 1, 0, -1],
+                        np.int64)
+        o = np.where(rng.random(n) < 0.5, pool[rng.integers(0, len(pool), n)],
+                     rng.integers(I64_MIN, I64_MAX, n, dtype=np.int64,
+                                  endpoint=True))
+    elif name == "negative":
+        o = rng.integers(I64_MIN, 0, n, dtype=np.int64)
+    elif name == "low_bits":
+        o = (np.int64(-0x12345678) << 32) \
+            | rng.integers(0, 2**32, n, dtype=np.int64)
+    elif name == "high_bits":
+        hi = rng.integers(-(2**31), 2**31, n, dtype=np.int64)
+        o = (hi << 32) | np.int64(0x9ABCDEF0)
+    else:
+        o = rng.integers(I64_MIN, I64_MAX, n, dtype=np.int64, endpoint=True)
+    return slots, present, m, dict(probe, o=o.astype(np.int64)), valid
+
+
+def k1_i64_numpy(slots, present, m, probe, valid):
+    """Max of ``o`` per slot over the pairs that pass q4's interval
+    predicate, INT64_MIN where none does, and the pair count."""
+    span = len(present)
+    rel = probe["k"].astype(np.int64) - int(m)
+    ok = valid & (rel >= 0) & (rel < span)
+    r = np.where(ok, rel, 0)
+    ok &= present[r] & (probe["b_ts"] >= slots["ats"][r]) \
+        & (probe["b_ts"] <= slots["exp"][r])
+    omax = np.full(span, I64_MIN, np.int64)
+    np.maximum.at(omax, r[ok], probe["o"][ok])
+    cnt = np.bincount(r[ok], minlength=span).astype(np.int32)
+    return omax, cnt
 
 
 # every aggregate kind: 28 bytes of shared memory per slot (sum 8, count 4,
