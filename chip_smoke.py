@@ -42,13 +42,35 @@ and the script exits non-zero:
    device's idle share.  q12 also makes exactly one K2 launch per staged
    chunk (15), and its fast consts runner equals the general one on the
    same staged chunks (a ``q12 (tag): fast runner = general runner``
-   line per window).  Then the kernels, as in phase 2, on the tensors the
+   line per window).  q11 (session windows, 10 s gap) runs in its device
+   tier on the bench epochs (one flush emission) and on the 15 s epochs
+   (timeouts from epoch 10 on; the emission buffer overflows and the
+   closing chunk rolls back and reruns with doubled buckets), and in its
+   generic label-table tier on the 15 s epochs: K2 launched (and K3 in
+   the generic tier), no plain kernel version on a card tensor, each
+   epoch staged once (plus each compaction's merged rows), every
+   emission's rows equal to ``numpy_q11`` (a vectorised sessionisation of
+   the whole stream), the device tier's emissions to the plain CPU
+   path's row for row and the generic tier's to the device tier's; with
+   compute-only (``run(epochs, prestaged=prestage(epochs))``) and
+   feed-inclusive rows/s, the idle share, the emissions, the rollbacks,
+   the flag reads per chunk, the host's per-epoch key-range time and the
+   generic tier's compactions.  Then the device tier's checkpoint/resume
+   on the 15 s epochs: epochs 0-7 through ``step_impl``, the open
+   sessions through ``to_payloads`` and a file backend, a fresh driver
+   resuming at epoch 8; the union of the emissions equals the
+   uninterrupted run's rows (open sessions, payload bytes, write and read
+   times printed).  Then the kernels, as in phase 2, on the tensors the
    main paths gave them in their first window: K2 and K3 at q7 (~36.8 M
    bids on one key and the gather of their max back to them), K2 at q5's
    count onto ~37 M slots, K2 and K3 at YSB (~40 M events onto 128
    campaign slots, the gather from 1,000 campaign slots), K2 at q12's
-   first chunk count (~3.68 M bids) and K1 at q6 (~3.68 M bids, the int64
-   max of ``__order`` and the seller carry); then K1's int64 max off the
+   first chunk count (~3.68 M bids), K1 at q6 (~3.68 M bids, the int64
+   max of ``__order`` and the seller carry), K2 at q11's first per-epoch
+   aggregation (~3.68 M bids, count and min/max of ``b_date_time``) and
+   K3 and K2 at the generic tier's first emission (the three label tables
+   gathered to the emission's rows, the aggregate by ``__session``); then
+   K1's int64 max off the
    main path on the adversarial cases of tests/torch_kernel_cases.py
    (extremes, negative values, values equal in their high or in their low
    32 bits, one slot, keys K1's window misses, no valid row), each also
@@ -58,6 +80,8 @@ and the script exits non-zero:
    rerun the window with the duplicate-faithful fallback — and q3 over
    that window with every person row repeated, which reruns too;
 5. the card's name and power limit, then one JSON result line.
+
+Each phase prints its seconds (a ``phase <name>`` line).
 
 It imports nothing of ``jax`` or ``flock_tpu``.
 """
@@ -110,6 +134,8 @@ QUERY_KERNELS = {"q4": ("join_agg", "dense_agg"),
                  "q7": ("dense_agg", "gather"),
                  "q8": ("dense_agg",),
                  "ysb": ("dense_agg", "gather"),
+                 "q11": ("dense_agg",), "q11-bench": ("dense_agg",),
+                 "q11-generic": ("dense_agg", "gather"),
                  "q0": (), "q1": (), "q2": (), "q10": (), "q2-rows": (),
                  "q2-sliding": (), "q2-stagger": ()}
 
@@ -162,7 +188,7 @@ class DeviceEvents:
     self_device_time_total: float
 
 
-def profile(fn, sessions: int = 3) -> list[DeviceEvents]:
+def profile(fn, sessions: int = 3) -> list[DeviceEvents] | None:
     """The device-side events (kernels, copies, fills) of one run of
     ``fn``, from torch.profiler.  Once the port's kernel libraries have
     launched, the profiler loses the first device event of every session,
@@ -172,9 +198,13 @@ def profile(fn, sessions: int = 3) -> list[DeviceEvents]:
     kind of event counts as often as the most any session recorded it, at
     its mean device time over all recorded ones.  Counts can still fall
     short; ``dispatched_ops`` counts exactly.  A session that records no
-    device event at all (now and then one does) is not counted; up to
-    ``3 * sessions`` are run.  The host-side operator events are left out:
-    their device time repeats that of the kernels they launched."""
+    device event at all (now and then one does, and once nine in a row did)
+    is not counted, and the next starts a tenth of a second later; up to
+    ``5 * sessions`` are run, and if none recorded an event the result is
+    None: the device times it would give are then "not measured" (null in
+    the JSON lines), and nothing else of the run depends on them.  The
+    host-side operator events are left out: their device time repeats that
+    of the kernels they launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -182,9 +212,11 @@ def profile(fn, sessions: int = 3) -> list[DeviceEvents]:
     most: dict[str, int] = {}
     seen: dict[str, list] = {}    # key → [events recorded, their us]
     recorded = 0
-    for _ in range(3 * sessions):
+    for attempt in range(5 * sessions):
         if recorded == sessions:
             break
+        if attempt > recorded:
+            time.sleep(0.1)
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(1000)
@@ -200,8 +232,9 @@ def profile(fn, sessions: int = 3) -> list[DeviceEvents]:
             acc[0] += e.count
             acc[1] += e.self_device_time_total
     if not most:
-        raise RuntimeError(f"the profiler saw no device event in "
-                           f"{3 * sessions} sessions")
+        print(f"profiler: no device event in {5 * sessions} sessions; "
+              "not measured", flush=True)
+        return None
     return [DeviceEvents(k, n, n * seen[k][1] / seen[k][0])
             for k, n in most.items()]
 
@@ -225,18 +258,103 @@ def dispatched_ops(fn) -> list[str]:
     return ops
 
 
-def device_profile(fn, kernel: str, reps: int = 10) -> tuple[float, float]:
-    """(mean device ms of the CUDA kernels whose name holds ``kernel``,
-    device operations per call — kernels, copies and fills) when ``fn``
-    runs ``reps`` times, from the profiler."""
+def profile_summary(events, compute_ms: float) -> dict:
+    """A compute-only pass's device busy time, idle share (busy time set
+    against the unprofiled compute time), device operations and ten
+    costliest event kinds, from ``profile``; null where the profiler
+    recorded nothing."""
+    if events is None:
+        return {"device_busy_ms": None, "idle_share": None,
+                "device_ops": None, "top": []}
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)
+    return {"device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / compute_ms,
+            "device_ops": sum(e.count for e in events),
+            "top": [[e.key[:80], e.count, e.self_device_time_total / 1e3]
+                    for e in top[:10]]}
+
+
+# cycles of the spin kernel that keeps the device busy while the host
+# launches a bracketed kernel (~0.2 ms at the H100's clock, tens of times a
+# ctypes launch's host time)
+SPIN_CYCLES = 400_000
+
+
+@contextlib.contextmanager
+def bracketed_launches(kernel: str):
+    """Inside the block, each launch of ``kernel`` (its library entry
+    point, which its wrapper calls through ctypes) is bracketed by two CUDA
+    events on the current stream, with a spin kernel queued before the
+    first so that the device is busy while the host launches: the interval
+    is the kernel alone on the device, without the profiler.  A third
+    event before the spin gives the spin's device time, and the host's
+    time from queueing the spin to the launch's return is kept: where it
+    is shorter than the spin, the kernel was queued before the device
+    reached the start event, and the interval holds no wait for the host.
+    Yields the list of (pre, start, end, host seconds), one per launch."""
+    from flock_tpu_torch.ops import dense_agg, gather, join_agg
+
+    if kernel == "gather":
+        owner, attr = gather, "_fn"
+        gather._kernel()
+    else:
+        mod = dense_agg if kernel == "dense_agg" else join_agg
+        owner, attr = mod._lib(), f"flock_{kernel}"
+    real = getattr(owner, attr)
+    launches = []
+
+    def bracketed(*args):
+        pre, start, end = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(3))
+        t0 = time.perf_counter()
+        pre.record()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        rc = real(*args)
+        host_s = time.perf_counter() - t0
+        end.record()
+        launches.append((pre, start, end, host_s))
+        return rc
+
+    setattr(owner, attr, bracketed)
+    try:
+        yield launches
+    finally:
+        setattr(owner, attr, real)
+
+
+def kernel_alone_ms(fn, kernel: str, reps: int = 15) -> tuple[float, int]:
+    """(median device time of ``kernel`` alone over the calls of ``fn``
+    whose launch the spin covered, how many of the ``reps`` calls it
+    covered), from CUDA events bracketing each launch (see
+    ``bracketed_launches``); each call must launch the kernel once, and
+    the spin must cover most launches."""
+    fn()
+    with bracketed_launches(kernel) as launches:
+        for _ in range(reps):
+            fn()
+    torch.cuda.synchronize()
+    if len(launches) != reps:
+        raise AssertionError(f"{kernel}: {len(launches)} launches in {reps} "
+                             "wrapper calls")
+    covered = [start.elapsed_time(end) for pre, start, end, host_s in launches
+               if host_s * 1e3 < pre.elapsed_time(start)]
+    if 2 * len(covered) <= reps:
+        raise AssertionError(f"{kernel}: the spin covered {len(covered)} of "
+                             f"{reps} launches")
+    return statistics.median(covered), len(covered)
+
+
+def device_ops_per_call(fn, reps: int = 10) -> float | None:
+    """Device operations (kernels, copies, fills) per call of ``fn`` over
+    ``reps`` calls, from the profiler; None where it recorded nothing (not
+    measured)."""
     fn()
     events = profile(lambda: [fn() for _ in range(reps)])
-    mine = [e for e in events if kernel in e.key]
-    if not mine:
-        raise RuntimeError(f"the profiler saw no device time ({kernel})")
-    return (sum(e.self_device_time_total for e in mine) / 1e3
-            / sum(e.count for e in mine),
-            sum(e.count for e in events) / reps)
+    if events is None:
+        return None
+    return sum(e.count for e in events) / reps
 
 
 def nbytes(*tensors) -> int:
@@ -368,7 +486,6 @@ def _k3_case(what, slots, present, m, keys, valid, out_rows=None,
                                    carry),
         library=lambda: col0[idx],
         library_call="slots[idx] of one column",
-        device_kernel="gather_kernel",
         bytes=nbytes_once(keys, valid, present, *slots.values(),
                           *(carry or {}).values()) + nbytes(*o1.values(), h1),
         err=err, main_path=main_path)
@@ -437,7 +554,6 @@ def _k1_i64_cases() -> dict:
             library=lambda b=buf, i=idx, o=probe["o"]: b.scatter_reduce_(
                 0, i, o, "amax"),
             library_call="scatter_reduce_(amax) of the int64 column",
-            device_kernel="join_agg_kernel",
             bytes=_k1_bytes(slots, present, probe, pvalid, K1_I64_AGGS),
             err=err, main_path=False)
     return cases
@@ -488,7 +604,6 @@ def _adversarial_cases(slots, present, m, probe, pvalid, pred, k1_aggs,
                                          k1_aggs),
             library=lambda: buf.scatter_reduce_(0, idx, pb["price"], "amax"),
             library_call="scatter_reduce_(amax) of price at the probe slots",
-            device_kernel="join_agg_kernel",
             bytes=_k1_bytes(sl, pr, pb, pv, k1_aggs), err=err,
             main_path=False)
 
@@ -531,7 +646,6 @@ def _adversarial_cases(slots, present, m, probe, pvalid, pred, k1_aggs,
             plain=lambda: dense_agg_plain(keys, valid, cols, aggs, cap),
             library=lambda: acc.index_add_(0, idx, col0),
             library_call="index_add_ of the first column",
-            device_kernel="dense_agg_",   # either variant
             bytes=_k2_bytes(keys, valid, cols, aggs, cap), err=err,
             main_path=False)
 
@@ -623,12 +737,16 @@ def _k3_adversarial(q9_slots, fvalid, m, keys, pvalid, q3, rng) -> dict:
     return cases
 
 
-def _slot_index(keys, valid, cap):
-    """K2's slot of every row as int64 (key - the least valid key), with
-    the invalid rows on the spill slot ``cap``: the library calls' index."""
-    k = keys.to(torch.int64)
-    kmin = int(k[valid].min()) if bool(valid.any()) else 0
-    return torch.where(valid, k - kmin, cap).clamp(0, cap)
+def _live_slots(keys, valid, cols):
+    """The library calls' inputs: K2's slot of every valid row as int64
+    (key - the least valid key) and the aggregated columns over those rows.
+    The invalid rows are left out before timing, so no library call spends
+    its time on rows the kernel skips (nor on one spill slot they would all
+    hit)."""
+    live = valid.nonzero().squeeze(1)
+    k = keys[live].to(torch.int64)
+    idx = k - k.min() if k.numel() else k
+    return idx, {c: v[live] for c, v in cols.items()}
 
 
 def _windowed_cases(inputs: dict) -> dict:
@@ -648,12 +766,12 @@ def _windowed_cases(inputs: dict) -> dict:
         err, ovf = _check_k2(keys, valid, cols, aggs, cap)
         if ovf:
             raise AssertionError(f"dense_agg {name}: overflowed")
-        idx = _slot_index(keys, valid, cap)
+        idx, live_cols = _live_slots(keys, valid, cols)
         cases[f"dense_agg/{name}"] = dict(
             kernel=lambda: dense_agg(keys, valid, cols, aggs, cap),
             plain=lambda: dense_agg_plain(keys, valid, cols, aggs, cap),
-            library=library(idx, cols, cap), library_call=library_call,
-            device_kernel="dense_agg_", shape=(
+            library=library(idx, live_cols, cap), library_call=library_call,
+            shape=(
                 f"{keys.numel()} rows ({int(valid.sum())} valid) -> "
                 f"{cap} slots"),
             bytes=_k2_bytes(keys, valid, cols, aggs, cap), err=err)
@@ -666,20 +784,37 @@ def _windowed_cases(inputs: dict) -> dict:
                 f"{keys.numel()} probes ({int(valid.sum())} valid), "
                 f"{int(present.sum())} of {present.numel()} slots present"))
 
-    def amax(idx, cols, cap):
-        buf = torch.full((cap + 1,), -2**31, dtype=torch.int32,
-                         device=idx.device)
-        return lambda: buf.scatter_reduce_(0, idx, cols["price"], "amax")
-
     def count(idx, cols, cap):
-        return lambda: torch.bincount(idx, minlength=cap + 1)
+        return lambda: torch.bincount(idx, minlength=cap)
 
-    k2("q7_one_key", amax, "scatter_reduce_(amax) of price")
+    def amax_of(col):
+        def library(idx, cols, cap):
+            buf = torch.full((cap,), -2**31, dtype=torch.int32,
+                             device=idx.device)
+            return lambda: buf.scatter_reduce_(0, idx, cols[col], "amax")
+        return library
+
+    def k3_sessions(name):
+        # the session tables hold a slot for every key of the span, so no
+        # probe meets an absent slot
+        args, kw = inputs[f"gather/{name}"]
+        slots, present, _, keys, valid = args
+        cases[f"gather/{name}"] = dict(
+            _k3_case(name, *args, **kw, mixed=False), shape=(
+                f"{keys.numel()} rows ({int(valid.sum())} valid), "
+                f"{present.numel()} label slots, {len(slots)} tables"))
+
+    k2("q7_one_key", amax_of("price"), "scatter_reduce_(amax) of price")
     k3("q7")
     k2("q5_count", count, "bincount of key - m")
     k2("ysb_count", count, "bincount of key - m")
     k3("ysb")
     k2("q12_chunk_count", count, "bincount of key - m")
+    k2("q11_epoch", amax_of("b_date_time"),
+       "scatter_reduce_(amax) of b_date_time")
+    k2("q11_generic", amax_of("b_date_time"),
+       "scatter_reduce_(amax) of b_date_time")
+    k3_sessions("q11_generic")
     cases["join_agg/q6"] = _q6_k1_case(*inputs["join_agg/q6"][0])
     return cases
 
@@ -738,7 +873,6 @@ def _q6_k1_case(slots, present, m, probe, pvalid, key, pred, aggs) -> dict:
                                      pred, aggs),
         library=lambda: buf.scatter_reduce_(0, idx, probe["__order"], "amax"),
         library_call="scatter_reduce_(amax) of __order at the probe slots",
-        device_kernel="join_agg_kernel",
         shape=(f"{pvalid.numel()} bids ({int(pvalid.sum())} valid), "
                f"{int(present.sum())} of {span} auction slots present, "
                f"{int(v1.sum())} won"),
@@ -765,6 +899,17 @@ WINDOWED_PICKS = {
     "q6": {"join_agg/q6": ("join_aggregate", lambda a: "__order" in a[3])},
     "q12": {"dense_agg/q12_chunk_count": (
         "dense_agg", lambda a: _agg_names(a) == ["__fast_cnt"])},
+    # q11's device tier: the first per-epoch count + min/max of b_date_time;
+    # its generic tier's first emission: the label gather (three tables)
+    # and the plan's aggregate by __session
+    "q11": {"dense_agg/q11_epoch": (
+        "dense_agg", lambda a: _agg_names(a) == ["__cnt0", "__emn", "__emx"])},
+    "q11-generic": {
+        "dense_agg/q11_generic": (
+            "dense_agg", lambda a: _agg_names(a) == [
+                "bidder", "bid_count", "start_time", "end_time"]),
+        "gather/q11_generic": (
+            "gather", lambda a: sorted(a[0]) == ["__end", "__ok", "__rank"])},
 }
 
 
@@ -921,7 +1066,6 @@ def phase_kernels(env: dict) -> list[dict]:
             library=lambda: buf.scatter_reduce_(0, rel_idx, probe["price"],
                                                 "amax"),
             library_call="scatter_reduce_(amax) of price at the probe slots",
-            device_kernel="join_agg_kernel",
             bytes=nbytes(pvalid, present, *slots.values())
             + valid_rows_bytes(pvalid, *probe.values())
             + nbytes(fused["final"], fused["category"], fvalid) + 4 * span,
@@ -932,7 +1076,6 @@ def phase_kernels(env: dict) -> list[dict]:
             library=lambda: buf.scatter_reduce_(
                 0, keys.to(torch.int64) - m0, bcols["expires"], "amax"),
             library_call="scatter_reduce_(amax) of one slot column",
-            device_kernel="dense_agg_global",
             bytes=nbytes(bvalid) + valid_rows_bytes(bvalid, keys,
                                                     *bcols.values())
             + 16 * span,
@@ -944,7 +1087,6 @@ def phase_kernels(env: dict) -> list[dict]:
                                           cat_aggs, 128),
             library=lambda: cat_buf.index_add_(0, cat_idx, final64),
             library_call="index_add_ of the sum column",
-            device_kernel="dense_agg_shared",
             bytes=nbytes(fvalid) + valid_rows_bytes(
                 fvalid, fused["category"], fused["final"]) + 12 * 128,
             err=err_cat),
@@ -956,7 +1098,6 @@ def phase_kernels(env: dict) -> list[dict]:
             library=lambda: buf6.scatter_reduce_(0, keys6_64, cols6["v"],
                                                  "amax"),
             library_call="scatter_reduce_(amax) of the max column",
-            device_kernel="dense_agg_global",
             bytes=nbytes(valid6) + valid_rows_bytes(valid6, keys6,
                                                     *cols6.values())
             + 8 * span6,
@@ -975,19 +1116,23 @@ def time_cases(env: dict, cases: dict) -> list[dict]:
     for name, c in cases.items():
         # ms / plain_ms / library_ms: CUDA-event medians of the wrapper, of
         # the plain version and of the library call, each the whole call;
-        # kernel_device_ms: the profiler's mean device time of the CUDA
-        # kernel alone, host_ms: the whole call less the kernel alone,
-        # device_ops_per_call: the device events (kernels, copies, fills)
-        # per wrapper call; bound_ms: the bytes over the data sheet's rate,
+        # kernel_device_ms: the median of the kernel alone between CUDA
+        # events bracketing the launches a spin covered (kernel_alone_ms;
+        # covered_launches of 15), host_ms: the whole call less the kernel
+        # alone; device_ops_per_call: the profiler's device events
+        # (kernels, copies, fills) per wrapper call, null where it recorded
+        # nothing; bound_ms: the bytes over the data sheet's rate,
         # bound_copy_ms: over this run's measured copy rate
         kernel = name.split("/")[0]
-        dev_ms, ops = device_profile(c["kernel"], c["device_kernel"])
+        ops = device_ops_per_call(c["kernel"])
+        dev_ms, covered = kernel_alone_ms(c["kernel"], kernel)
         ms = cuda_ms(c["kernel"])
         rec = {"case": name, "kernel": kernel, "ms": ms,
                "host_ms": ms - dev_ms,
                "plain_ms": cuda_ms(c["plain"]),
                "library_ms": cuda_ms(c["library"]),
-               "kernel_device_ms": dev_ms, "device_ops_per_call": ops,
+               "kernel_device_ms": dev_ms, "covered_launches": covered,
+               "device_ops_per_call": ops,
                "library_call": c["library_call"],
                "bytes": c["bytes"],
                "bound_ms": c["bytes"] / PEAK_BYTES_S * 1e3,
@@ -1119,6 +1264,27 @@ def numpy_q12(t: dict) -> dict:
     idx = np.flatnonzero(first)
     return {"bidder": b[first], "bid_count": np.diff(np.append(idx, len(b))),
             "start_time": p[first], "end_time": p[last]}
+
+
+def numpy_q11(epochs: list, gap: int) -> dict:
+    """Independent q11 over the whole stream: the bids, which arrive in
+    time order, sorted stably by bidder, so each bidder's bids stay in
+    time order; a session starts at a bidder's first bid and wherever the
+    second-truncated time jumps by more than ``gap``; per session the bids,
+    the first and the last time."""
+    b = np.concatenate([e["bid"]["bidder"] for e in epochs])
+    t = np.concatenate([e["bid"]["b_date_time"] for e in epochs])
+    if np.any(np.diff(t) < 0):
+        raise AssertionError("numpy_q11: the stream is not in time order")
+    order = np.argsort(b, kind="stable")
+    b, t = b[order], t[order]
+    sec = t // 1000
+    start = np.ones(len(b), bool)
+    start[1:] = (b[1:] != b[:-1]) | (sec[1:] - sec[:-1] > gap)
+    idx = np.flatnonzero(start)
+    end = np.append(idx[1:], len(b))
+    return {"bidder": b[idx], "bid_count": end - idx, "start_time": t[idx],
+            "end_time": t[end - 1]}
 
 
 def numpy_q13(t: dict, side_input: dict) -> dict:
@@ -1520,23 +1686,20 @@ def phase_query(label: str, spec, main, path_of, numpy_fn, seconds: int,
     if path.single is not None:
         # a one-epoch window takes its epoch's batches as they stand: the
         # same operations as execute_batches on them
-        extra["device_ops_execute_batches"] = sum(e.count for e in profile(
+        one = profile(
             lambda: [ex.execute_batches(staged[t], check_overflow=False)
-                     for t in path.single]))
+                     for t in path.single])
+        extra["device_ops_execute_batches"] = None if one is None \
+            else sum(e.count for e in one)
         if dispatched_ops(lambda: [
                 ex.execute_batches(staged[t], check_overflow=False)
                 for t in path.single]) != aten:
             raise AssertionError(f"{label}: one-epoch windows dispatch "
                                  "other operations than execute_batches")
     del staged
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)
     print(f"{label} profile: " + json.dumps({
         "windows": len(path.windows), "compute_ms": best * 1e3,
-        "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / (best * 1e3),
-        "device_ops": sum(e.count for e in events), **extra,
-        "top": [[e.key[:80], e.count, e.self_device_time_total / 1e3]
-                for e in top[:10]]}), flush=True)
+        **profile_summary(events, best * 1e3), **extra}), flush=True)
     best_incl = float("inf")
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1671,6 +1834,269 @@ def phase_ysb(card_line: str, inputs: dict) -> dict:
                        card_line, inputs=inputs)
 
 
+Q11_NAMES = ["bidder", "bid_count", "start_time", "end_time"]
+
+
+def _all_rows(results) -> dict:
+    """Every emission's sink columns, concatenated."""
+    return {n: np.concatenate([np.asarray(r.columns[n]) for r in results])
+            for n in Q11_NAMES}
+
+
+@contextlib.contextmanager
+def session_tier(generic: bool):
+    """Inside the block, q11 takes the generic label-table tier when
+    ``generic`` (the device tier's gate answers None, as
+    tests/test_adversarial.py:84 forces it), and the number of chunk
+    compactions of that tier is counted."""
+    from flock_tpu_torch.runtime import device_session, stream
+
+    gate, compact = device_session.session_fast_spec, \
+        stream.SessionState.compact
+    made = []
+
+    def counting(self, max_chunks, restage=None):
+        before = self.next_cid
+        compact(self, max_chunks, restage)
+        if self.next_cid != before:
+            made.append(1)
+
+    if generic:
+        device_session.session_fast_spec = lambda *a, **kw: None
+    stream.SessionState.compact = counting
+    try:
+        yield made
+    finally:
+        device_session.session_fast_spec = gate
+        stream.SessionState.compact = compact
+
+
+def phase_q11(label: str, epochs: list, seconds: int, eps: int,
+              gen_s: float, card_line: str, want: dict, inputs: dict,
+              generic: bool = False, cpu_check: bool = True,
+              device_results=None, reps: int = 3) -> tuple:
+    """q11 through ``StreamDriver.run`` on the card, in the device tier or
+    (``generic``) the generic label-table tier.  The main path runs with
+    every launch counter at zero: its tier's kernels must launch, no plain
+    kernel version may see a card tensor, and each epoch is staged once
+    (the generic tier also restages each compaction's merged rows).  Its
+    rows must equal ``want`` (numpy_q11); the device tier's emissions must
+    equal the plain CPU path's, emission for emission, row for row
+    (``cpu_check``); the generic tier's must equal the device tier's
+    (``device_results``), tag for tag.  Then compute-only (``run(epochs,
+    prestaged=prestage(epochs))``) and feed-inclusive (``run(epochs)``)
+    rows/s, the idle share of the compute-only run, the emissions, the
+    device tier's rollbacks, host reads of the chunk flags per chunk
+    dispatch, the host's per-epoch key-range time, and one compute-only
+    run with the emission buffer preset to the size the rollbacks reach
+    (none then); ``reps`` bounds the timed runs.  Returns (launches,
+    results)."""
+    from flock_tpu_torch.queries.nexmark import get_query
+    from flock_tpu_torch.runtime.stream import StreamDriver
+
+    spec = get_query(11)
+    nonempty = sum(1 for e in epochs if len(e["bid"]["bidder"]))
+    with session_tier(generic) as compactions:
+        wrappers = counters()
+        for w in wrappers.values():
+            w.launches = 0
+        picks = WINDOWED_PICKS.get(label, {})
+        kept = {}
+        driver = StreamDriver(spec, seconds, device="cuda")
+        with no_plain_on_card(), staging_count() as staged_calls, \
+                kernel_inputs(picks, kept):
+            t0 = time.perf_counter()
+            results = driver.run(epochs)
+            torch.cuda.synchronize()
+            first_run_s = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        n_compactions = len(compactions)
+        if set(kept) != set(picks):
+            raise AssertionError(f"{label}: no main-path call for "
+                                 f"{sorted(set(picks) - set(kept))}")
+        inputs.update(kept)
+        missing = [k for k in QUERY_KERNELS[label] if not launches[k]]
+        if missing:
+            raise AssertionError(f"{label} did not run through {missing}: "
+                                 f"{launches}")
+        if len(staged_calls) != nonempty + n_compactions:
+            raise AssertionError(
+                f"{label} staged {len(staged_calls)} batches, not each of "
+                f"{nonempty} epochs once (+{n_compactions} compactions)")
+        stats = driver.session_stats
+        if (stats is None) != generic:
+            raise AssertionError(f"{label}: ran in the wrong session tier")
+        got = _all_rows(results)
+        _same_row_set(got, want, Q11_NAMES, f"{label}: card vs numpy")
+        if cpu_check:
+            cpu = StreamDriver(spec, seconds, device="cpu").run(epochs)
+            if [r.tag for r in cpu] != [r.tag for r in results]:
+                raise AssertionError(f"{label}: emission tags differ from "
+                                     "the CPU plain path's")
+            for r, c in zip(results, cpu):
+                _same_rows(r.columns, c.columns, Q11_NAMES,
+                           f"{label} {r.tag}: card vs CPU plain path")
+                for n in Q11_NAMES:
+                    if r.columns[n].dtype != c.columns[n].dtype:
+                        raise AssertionError(f"{label} {r.tag}: {n} dtype")
+        if device_results is not None:
+            if [r.tag for r in device_results] != [r.tag for r in results]:
+                raise AssertionError(f"{label}: emission tags differ from "
+                                     "the device tier's")
+            for r, d in zip(results, device_results):
+                _same_row_set(r.columns, d.columns, Q11_NAMES,
+                              f"{label} {r.tag}: vs the device tier")
+
+        rows_in = sum(len(e["bid"]["bidder"]) for e in epochs)
+        timed = StreamDriver(spec, seconds, device="cuda")
+        staged = timed.prestage(epochs)
+        torch.cuda.synchronize()
+
+        def compute():
+            return timed.run(epochs, prestaged=staged)
+
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            compute()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        events = profile(compute, sessions=min(reps, 3))
+        wrappers = counters()
+        before = {k: w.launches for k, w in wrappers.items()}
+        aten = dispatched_ops(compute)
+        print(f"{label} profile: " + json.dumps({
+            "compute_ms": best * 1e3, **profile_summary(events, best * 1e3),
+            "aten_ops": len(aten),
+            "kernel_launches": sum(w.launches - before[k]
+                                   for k, w in wrappers.items())}),
+              flush=True)
+        if not generic:
+            # the same compute-only run with the emission buffer the
+            # rollbacks end at preset: what the rollbacks cost
+            from flock_tpu_torch.runtime import device_session
+
+            warm = timed.session_stats
+            preset = device_session.CAP_OUT
+            device_session.CAP_OUT = preset << warm.retries
+            try:
+                t0 = time.perf_counter()
+                compute()
+                torch.cuda.synchronize()
+                no_rollback_s = time.perf_counter() - t0
+            finally:
+                device_session.CAP_OUT = preset
+            if timed.session_stats.retries:
+                raise AssertionError(f"{label}: a preset buffer rolled back")
+        del staged
+        best_incl = float("inf")
+        for _ in range(max(reps - 1, 1)):
+            t0 = time.perf_counter()
+            StreamDriver(spec, seconds, device="cuda").run(epochs)
+            torch.cuda.synchronize()
+            best_incl = min(best_incl, time.perf_counter() - t0)
+    rec = {"query": label, "tier": "generic" if generic else "device",
+           "seconds": seconds, "eps": eps, "rows_in": rows_in,
+           "rows_out": len(got["bidder"]), "emissions": len(results),
+           "gen_s": gen_s, "first_run_s": first_run_s, "compute_s": best,
+           "rows_per_s": rows_in / best, "feed_incl_s": best_incl,
+           "rows_per_s_feed_inclusive": rows_in / best_incl,
+           "launches": launches, "staged_batches": len(staged_calls),
+           "card": card_line}
+    if generic:
+        rec["compactions"] = n_compactions
+    else:
+        # the flush's session count is the one read that is not a chunk's;
+        # the key ranges' time is the last compute-only run's (warm)
+        rec.update(dispatches=stats.dispatches, retries=stats.retries,
+                   flag_reads=stats.flag_reads,
+                   flag_reads_per_dispatch=(stats.flag_reads - 1)
+                   / stats.dispatches,
+                   key_range_ms=warm.meta_s * 1e3,
+                   compute_s_no_rollback=no_rollback_s)
+    print(f"{label}: " + json.dumps(rec), flush=True)
+    return launches, results
+
+
+def phase_q11_resume(epochs: list, seconds: int, card_line: str,
+                     uninterrupted) -> None:
+    """The device tier's checkpoint/resume on the card, as
+    tests/test_checkpoint.py:256 drives the reference: epochs 0-7 through
+    ``step_impl``, the open sessions through ``to_payloads`` and a file
+    backend in a temporary directory, a fresh driver resuming with
+    ``run_device_sessions(..., resume_payloads=..., t_base=8)``.  The
+    union of the emissions must equal the uninterrupted run's rows."""
+    import tempfile
+
+    from flock_tpu_torch.batch import TS_BASE, Batch
+    from flock_tpu_torch.queries.nexmark import get_query
+    from flock_tpu_torch.runtime import device_session as ds
+    from flock_tpu_torch.runtime.executor import _pow2_bucket
+    from flock_tpu_torch.runtime.state import FileStateBackend
+    from flock_tpu_torch.runtime.stream import SessionState, StreamDriver
+
+    t_phase = time.perf_counter()
+    spec = get_query(11)
+    key, tcol = SessionState.key, SessionState.time_col
+    gap, split = spec.window[1], 8
+    fs = ds.session_fast_spec(spec, key, "bid")
+    ea, accs = ds._acc_plan(fs, key, tcol)
+    ks = [e["bid"][key] for e in epochs if len(e["bid"][key])]
+    m, kmax = min(int(k.min()) for k in ks), max(int(k.max()) for k in ks)
+    SE = ds._bucket(max(int(k.max()) - int(k.min()) + 1 for k in ks))
+    state = ds.init_state(ds._bucket(kmax - m + 1 + 8192) + SE, accs, "cuda")
+    parts = []
+    for t in range(split):
+        bid = {c: epochs[t]["bid"][c] for c in (key, tcol)}
+        b = Batch.from_numpy(bid, _pow2_bucket(len(bid[key])), "cuda")
+        state, oc, _, ne, ovf = ds.step_impl(
+            key, tcol, ea, accs, SE, ds.CAP_OUT, True, gap, t + 1 - gap, m,
+            state, dict(b.columns), b.valid,
+            (int(bid[key].min()), int(bid[key].max())))
+        n = int(ne)
+        if bool(ovf):
+            raise AssertionError(f"q11 resume: step {t} overflowed")
+        host = ds.finish_names(fs, key, {c: a[:n].cpu().numpy()
+                                         for c, a in oc.items()})
+        parts.append({**host,
+                      "start_time": host["start_time"].astype(np.int64)
+                      + TS_BASE,
+                      "end_time": host["end_time"].astype(np.int64)
+                      + TS_BASE})
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as root:
+        backend = FileStateBackend(root=root)
+        t0 = time.perf_counter()
+        for p in ds.to_payloads(state, m, accs, "q11", split):
+            backend.write(0, p)
+        write_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in os.scandir(
+            os.path.join(root, "q11", "0", "0")))
+        t0 = time.perf_counter()
+        payloads = [backend.read("q11", 0, 0, s)
+                    for s in backend.list_seqs("q11", 0, 0)]
+        read_s = time.perf_counter() - t0
+    del state
+    opened = sum(len(p.columns["__key"]) for p in payloads)
+    if not opened:
+        raise AssertionError("q11 resume: no session open at the checkpoint")
+    resumed = ds.run_device_sessions(StreamDriver(spec, seconds,
+                                                  device="cuda"),
+                                     epochs[split:], None, fs,
+                                     resume_payloads=payloads, t_base=split)
+    rows = {n: np.concatenate([p[n] for p in parts]
+                              + [np.asarray(r.columns[n]) for r in resumed])
+            for n in Q11_NAMES}
+    _same_row_set(rows, _all_rows(uninterrupted), Q11_NAMES,
+                  "q11 resume: union vs the uninterrupted run")
+    print("q11 resume: " + json.dumps({
+        "split_epoch": split, "open_sessions": opened,
+        "payload_bytes": size, "write_s": write_s, "read_s": read_s,
+        "rows": len(rows["bidder"]), "resumed_emissions": len(resumed),
+        "seconds": time.perf_counter() - t_phase, "card": card_line}),
+        flush=True)
+
+
 def _blanked(epochs: list, blank=(0, 1, 5)) -> list:
     """tests/test_windows.py's stagger input: epochs 0, 1 and 5 empty."""
     empty = {k: v[:0] for k, v in epochs[0]["bid"].items()}
@@ -1737,7 +2163,9 @@ def kernels_line(cases: list[dict], launches: dict[str, dict]) -> dict:
     for name, (source, replaces) in KERNELS.items():
         mine = [c for c in cases if c["kernel"] == name]
         main = [c for c in mine if c["main_path"]]
-        total = {k: sum(c[k] for c in main)
+        # a sum over a case the profiler missed is not measured (null)
+        total = {k: None if any(c[k] is None for c in main)
+                 else sum(c[k] for c in main)
                  for k in ("ms", "plain_ms", "library_ms", "kernel_device_ms",
                            "bound_ms", "bound_copy_ms")}
         by_query = {label: ln[name] for label, ln in launches.items()}
@@ -1751,6 +2179,26 @@ def kernels_line(cases: list[dict], launches: dict[str, dict]) -> dict:
     return {"kernels": out}
 
 
+def timed_numpy_q11(label: str, epochs: list) -> dict:
+    from flock_tpu_torch.queries.nexmark import SESSION_GAP_S
+
+    t0 = time.perf_counter()
+    want = numpy_q11(epochs, SESSION_GAP_S)
+    print(f"{label} numpy_q11: " + json.dumps({
+        "sessions": len(want["bidder"]),
+        "seconds": time.perf_counter() - t0}), flush=True)
+    return want
+
+
+@contextlib.contextmanager
+def phase_seconds(name: str):
+    """Prints the seconds the block took, as ``phase <name>: {...}``."""
+    t0 = time.perf_counter()
+    yield
+    print(f"phase {name}: " + json.dumps(
+        {"seconds": time.perf_counter() - t0}), flush=True)
+
+
 def main() -> int:
     from flock_tpu_torch.queries.nexmark import get_query
     from flock_tpu_torch.runtime.stream import generate_epochs
@@ -1759,47 +2207,74 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     card_line = card()
-    env = phase_env(card_line)
-    cases = phase_kernels(env)
+    with phase_seconds("env"):
+        env = phase_env(card_line)
+    with phase_seconds("kernels"):
+        cases = phase_kernels(env)
     launches = {}
-    t0 = time.perf_counter()
-    epochs = generate_epochs(BENCH_SECONDS, BENCH_EPS, 1)
-    gen_s = time.perf_counter() - t0
     inputs = {}   # the main paths' kernel calls that kernel cases take
-    for q in (4, 9, 13, 6, 0, 1, 2, 10):
-        launches[f"q{q}"] = phase_stream(f"q{q}", get_query(q), epochs,
-                                         BENCH_SECONDS, BENCH_EPS, gen_s,
-                                         card_line, inputs=inputs)
-    launches["q2-rows"] = phase_stream(
-        "q2-rows", dataclasses.replace(get_query(2), window=("rows", ROWS_N)),
-        epochs, BENCH_SECONDS, BENCH_EPS, gen_s, card_line)
+    with phase_seconds("bench epochs"):
+        t0 = time.perf_counter()
+        epochs = generate_epochs(BENCH_SECONDS, BENCH_EPS, 1)
+        gen_s = time.perf_counter() - t0
+        for q in (4, 9, 13, 6, 0, 1, 2, 10):
+            launches[f"q{q}"] = phase_stream(f"q{q}", get_query(q), epochs,
+                                             BENCH_SECONDS, BENCH_EPS, gen_s,
+                                             card_line, inputs=inputs)
+        launches["q2-rows"] = phase_stream(
+            "q2-rows",
+            dataclasses.replace(get_query(2), window=("rows", ROWS_N)),
+            epochs, BENCH_SECONDS, BENCH_EPS, gen_s, card_line)
+    with phase_seconds("q11 bench"):
+        launches["q11-bench"], _ = phase_q11(
+            "q11-bench", epochs, BENCH_SECONDS, BENCH_EPS, gen_s, card_line,
+            timed_numpy_q11("q11-bench", epochs), inputs)
     del epochs
-    t0 = time.perf_counter()
-    epochs = generate_epochs(BENCH_SECONDS, Q3_EPS, 1)
-    gen_s = time.perf_counter() - t0
-    launches["q3"] = phase_stream("q3", get_query(3), epochs, BENCH_SECONDS,
-                                  Q3_EPS, gen_s, card_line)
-    del epochs
-    t0 = time.perf_counter()
-    epochs = generate_epochs(WIN_SECONDS, BENCH_EPS, 1)
-    gen_s = time.perf_counter() - t0
-    for q in (5, 7, 8):
-        launches[f"q{q}"] = phase_stream(f"q{q}", get_query(q), epochs,
-                                         WIN_SECONDS, BENCH_EPS, gen_s,
-                                         card_line, inputs=inputs)
-    for label, win, ep in (("q2-sliding", ("sliding", 4, 2), epochs),
-                           ("q2-stagger", ("stagger", 3), _blanked(epochs))):
-        launches[label] = phase_stream(
-            label, dataclasses.replace(get_query(2), window=win), ep,
-            WIN_SECONDS, BENCH_EPS, gen_s, card_line)
-    launches["q12"] = phase_q12(epochs, gen_s, card_line, inputs)
-    del epochs
-    launches["ysb"] = phase_ysb(card_line, inputs)
-    cases += time_cases(env, _windowed_cases(inputs))
-    del inputs
-    cases += time_cases(env, _k1_i64_cases())
+    with phase_seconds("q3"):
+        t0 = time.perf_counter()
+        epochs = generate_epochs(BENCH_SECONDS, Q3_EPS, 1)
+        gen_s = time.perf_counter() - t0
+        launches["q3"] = phase_stream("q3", get_query(3), epochs,
+                                      BENCH_SECONDS, Q3_EPS, gen_s, card_line)
+        del epochs
+    with phase_seconds("windowed epochs"):
+        t0 = time.perf_counter()
+        epochs = generate_epochs(WIN_SECONDS, BENCH_EPS, 1)
+        gen_s = time.perf_counter() - t0
+        for q in (5, 7, 8):
+            launches[f"q{q}"] = phase_stream(f"q{q}", get_query(q), epochs,
+                                             WIN_SECONDS, BENCH_EPS, gen_s,
+                                             card_line, inputs=inputs)
+        for label, win, ep in (("q2-sliding", ("sliding", 4, 2), epochs),
+                               ("q2-stagger", ("stagger", 3),
+                                _blanked(epochs))):
+            launches[label] = phase_stream(
+                label, dataclasses.replace(get_query(2), window=win), ep,
+                WIN_SECONDS, BENCH_EPS, gen_s, card_line)
+    with phase_seconds("q12"):
+        launches["q12"] = phase_q12(epochs, gen_s, card_line, inputs)
+    with phase_seconds("q11 device tier"):
+        want = timed_numpy_q11("q11", epochs)
+        launches["q11"], device_results = phase_q11(
+            "q11", epochs, WIN_SECONDS, BENCH_EPS, gen_s, card_line, want,
+            inputs)
+    with phase_seconds("q11 generic tier"):
+        launches["q11-generic"], _ = phase_q11(
+            "q11-generic", epochs, WIN_SECONDS, BENCH_EPS, gen_s, card_line,
+            want, inputs, generic=True, cpu_check=False,
+            device_results=device_results, reps=1)
+    with phase_seconds("q11 resume"):
+        phase_q11_resume(epochs, WIN_SECONDS, card_line, device_results)
+    del epochs, want, device_results
+    with phase_seconds("ysb"):
+        launches["ysb"] = phase_ysb(card_line, inputs)
+    with phase_seconds("main-path kernel cases"):
+        cases += time_cases(env, _windowed_cases(inputs))
+        del inputs
+        cases += time_cases(env, _k1_i64_cases())
     print(json.dumps(kernels_line(cases, launches)), flush=True)
-    phase_duplicates()
+    with phase_seconds("duplicates"):
+        phase_duplicates()
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
 """Build and load the host-side native libraries (C++ → .so via g++, ctypes).
 
 Cut-down copy of ``flock_tpu/native/__init__.py`` for the port: the NEXMark
-and YSB generators (``flockgen.cpp``) and the window staging pass (``stage.cpp``),
-both copies of the reference package's sources.  Libraries compile on first
+and YSB generators (``flockgen.cpp``), the window staging pass
+(``stage.cpp``), the per-epoch session key statistics (``session.cpp``) and
+the LZ4 and Snappy payload codecs (``codec.cpp``, ``snappy.cpp``), all
+copies of the reference package's sources.  Libraries compile on first
 use into ``flock_tpu_torch/build/``; a stale library (older than its source)
 rebuilds.
 """
@@ -105,3 +107,94 @@ def stage_column(arr: np.ndarray, capacity: int, rebase_base: int | None,
 def min_i64(arr: np.ndarray) -> int:
     arr = np.ascontiguousarray(arr, np.int64)
     return int(_stage_lib().flock_min_i64(arr.ctypes.data, len(arr)))
+
+
+def _codec_lib(src_name: str, lib_name: str, prefix: str) -> ctypes.CDLL:
+    lib = _load(src_name, lib_name)
+    if not getattr(lib, "_flock_argtypes", False):
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        getattr(lib, f"{prefix}_max_compressed").restype = ctypes.c_int64
+        getattr(lib, f"{prefix}_max_compressed").argtypes = [ctypes.c_int64]
+        for fn in ("compress", "decompress"):
+            f = getattr(lib, f"{prefix}_{fn}")
+            f.restype = ctypes.c_int64
+            f.argtypes = [u8p, ctypes.c_int64, u8p, ctypes.c_int64]
+        lib._flock_argtypes = True
+    return lib
+
+
+def _compress(lib, prefix: str, data: bytes) -> bytes:
+    cap = getattr(lib, f"{prefix}_max_compressed")(len(data))
+    dst = ctypes.create_string_buffer(cap)
+    src = (ctypes.c_uint8 * max(len(data), 1)).from_buffer_copy(data or b"\0")
+    n = getattr(lib, f"{prefix}_compress")(
+        ctypes.cast(src, ctypes.POINTER(ctypes.c_uint8)), len(data),
+        ctypes.cast(dst, ctypes.POINTER(ctypes.c_uint8)), cap)
+    if n < 0:
+        raise ValueError(f"{prefix} compression failed")
+    return dst.raw[:n]
+
+
+def _decompress(lib, prefix: str, data: bytes, out_size: int) -> bytes:
+    dst = ctypes.create_string_buffer(max(out_size, 1))
+    src = (ctypes.c_uint8 * max(len(data), 1)).from_buffer_copy(data or b"\0")
+    n = getattr(lib, f"{prefix}_decompress")(
+        ctypes.cast(src, ctypes.POINTER(ctypes.c_uint8)), len(data),
+        ctypes.cast(dst, ctypes.POINTER(ctypes.c_uint8)), out_size)
+    if n != out_size:
+        raise ValueError(f"{prefix} decompression failed ({n} != {out_size})")
+    return dst.raw[:n]
+
+
+def lz4_compress(data: bytes) -> bytes:
+    """LZ4 block format (``codec.cpp``)."""
+    return _compress(_codec_lib("codec.cpp", "libflockcodec.so", "flock_lz4"),
+                     "flock_lz4", data)
+
+
+def lz4_decompress(data: bytes, out_size: int) -> bytes:
+    return _decompress(_codec_lib("codec.cpp", "libflockcodec.so",
+                                  "flock_lz4"), "flock_lz4", data, out_size)
+
+
+def snappy_compress(data: bytes) -> bytes:
+    """Snappy block format (``snappy.cpp``)."""
+    return _compress(_codec_lib("snappy.cpp", "libflocksnappy.so",
+                                "flock_snappy"), "flock_snappy", data)
+
+
+def snappy_decompress(data: bytes, out_size: int) -> bytes:
+    return _decompress(_codec_lib("snappy.cpp", "libflocksnappy.so",
+                                  "flock_snappy"), "flock_snappy", data,
+                       out_size)
+
+
+def _session_lib() -> ctypes.CDLL:
+    lib = _load("session.cpp", "libflocksession.so")
+    if not getattr(lib, "_flock_argtypes", False):
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        lib.flock_session_stats.argtypes = [
+            i64p, i64p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            i64p, i64p]
+        lib.flock_session_stats.restype = ctypes.c_int64
+        lib._flock_argtypes = True
+    return lib
+
+
+def session_stats(keys, times, kmin: int, span: int):
+    """(first_sec, last_sec) dense int64[span] tables for one epoch's rows
+    (-1 where the key is absent), or None when a key lies outside
+    ``[kmin, kmin + span)`` (the caller then takes its numpy path)."""
+    lib = _session_lib()
+    keys = np.ascontiguousarray(keys, np.int64)
+    times = np.ascontiguousarray(times, np.int64)
+    first = np.full(span, -1, np.int64)
+    last = np.full(span, -1, np.int64)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    rc = lib.flock_session_stats(
+        keys.ctypes.data_as(i64p), times.ctypes.data_as(i64p),
+        len(keys), kmin, span,
+        first.ctypes.data_as(i64p), last.ctypes.data_as(i64p))
+    if rc != 0:
+        return None
+    return first, last

@@ -1,11 +1,11 @@
 """NEXMark query plans with torch expressions — the counterpart of
 ``flock_tpu/queries/nexmark.py`` (``QuerySpec``, ``_winning_bid_interval``
-and q0–q10, q12, q13; q11, over session windows, is a later slice of the
-port).
+and q0–q13).
 
 Window per query, as in the reference (main.rs:116-122): q0–q4, q6, q9,
 q10 and q13 element-wise (one window per epoch), q5 hopping (10 s, hop
-5 s), q7 and q8 tumbling (10 s), q12 processing-time (10 s of arrival).
+5 s), q7 and q8 tumbling (10 s), q11 session (10 s gap), q12
+processing-time (10 s of arrival).
 
 - q0.sql: every bid (pass-through); q10.sql the same columns, projected.
 - q1.sql: every bid with its price in another currency, ``0.908 * price``.
@@ -30,6 +30,11 @@ q10 and q13 element-wise (one window per epoch), q5 hopping (10 s, hop
   distinct sellers, both slotted over person ids: ``kernels.slot_join``).
 - q9.sql: the winning bids themselves (every bid whose price equals its
   auction's winning price).
+- q11.sql: per bidder session (a bid more than 10 s after the session's
+  last one opens a new session), the bids and the first and last bid time.
+  The stream driver labels each closed session's rows with ``__session``;
+  the device tier (``runtime/device_session.py``) never builds that column
+  and aggregates sessions incrementally instead.
 - q12.sql: per bidder, the bids and the first and last arrival second of
   each 10 s processing-time window (``p_time``, the arrival epoch in ms,
   made on the device by the executor's ``execute_consts``).
@@ -53,6 +58,7 @@ _CA, _ID, _OR = US_STATES.index("ca"), US_STATES.index("id"), US_STATES.index("o
 
 NAME_VOCAB = [f"{f} {l}" for f in FIRST_NAMES for l in LAST_NAMES]
 
+SESSION_GAP_S = 10   # q11's session gap (the reference's default)
 PTIME_WINDOW_S = 10  # q12's processing-time window (the reference's default)
 
 
@@ -296,6 +302,24 @@ def q10() -> QuerySpec:
                             timestamp_cols=("b_date_time",)))
 
 
+def q11() -> QuerySpec:
+    # The stream driver slices sessions per bidder and feeds closed sessions
+    # with a __session id column; __session ids are unique per session, so
+    # GROUP BY __session with the bidder carried is one row per session
+    plan = Project(
+        Aggregate(Scan("bid"), group_keys=("__session",),
+                  aggs=(("bidder", "max", "bidder"),
+                        (None, "count", "bid_count"),
+                        ("b_date_time", "min", "start_time"),
+                        ("b_date_time", "max", "end_time"))),
+        (("bidder", "bidder"), ("bid_count", "bid_count"),
+         ("start_time", "start_time"), ("end_time", "end_time")),
+    )
+    return QuerySpec(11, plan, ("session", SESSION_GAP_S), ("bid",),
+                     Schema(["bidder", "bid_count", "start_time", "end_time"],
+                            timestamp_cols=("start_time", "end_time")))
+
+
 def q12() -> QuerySpec:
     # p_time is attached by the stream driver (the arrival epoch in ms, one
     # constant per staged chunk); the plan groups per bidder within the
@@ -326,7 +350,7 @@ def q13() -> QuerySpec:
 
 
 QUERIES = {0: q0, 1: q1, 2: q2, 3: q3, 4: q4, 5: q5, 6: q6, 7: q7, 8: q8,
-           9: q9, 10: q10, 12: q12, 13: q13}
+           9: q9, 10: q10, 11: q11, 12: q12, 13: q13}
 
 
 def get_query(n: int) -> QuerySpec:

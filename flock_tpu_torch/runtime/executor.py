@@ -23,8 +23,14 @@ device and summed, the constants' min/max/sum derived from the counts.
 Any other plan runs over the chunks concatenated, with the constants
 filled in (``torch.full``).
 
-``execute_stacked``, ``execute_session_tables`` and the session state are
-later slices of the port.
+``execute_session_tables`` runs one emission of the generic session tier
+(q11's plans that the device tier does not take): the staged chunks
+concatenate on the device, each row gathers its session label and its
+session's chunk range from three dense tables (``kernels.lookup_join`` with
+a slotted build: kernel K3), rows outside their session's range turn
+invalid, and the plan aggregates by ``__session`` (kernel K2).
+
+``execute_stacked`` is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -229,6 +235,42 @@ class LocalExecutor:
         """One epoch's columns → a device-resident Batch of ``capacity``
         rows."""
         return Batch.from_numpy(cols, capacity, self.device)
+
+    def execute_session_tables(self, chunks: list[Batch], key: str,
+                               tables: tuple, cids,
+                               agg_capacity: int) -> Batch:
+        """Run the plan over staged chunks whose rows are labelled and
+        filtered on the device from an emission's dense tables
+        (``Emission.dense_tables``: ``rank_tab``, ``ok_tab``, ``end_tab``
+        over the keys ``cmin + i``, and ``k`` sessions): only the tables
+        cross to the device, never the rows.  A row of chunk ``cids[i]``
+        joins its key's slot (K3); it carries ``__session`` =
+        ``min(rank, k - 1)`` and is live iff ``ok <= cid < end``.  Raises
+        OverflowError when the sessions overflow ``agg_capacity``."""
+        rank_tab, ok_tab, end_tab, cmin, k = tables
+        span_bucket = len(rank_tab)
+        dev = self.device
+        cols = {c: torch.cat([ch.columns[c] for ch in chunks])
+                for c in chunks[0].columns}
+        valid_in = torch.cat([ch.valid for ch in chunks])
+        cidvec = torch.cat([torch.full((ch.capacity,), int(cid),
+                                       dtype=torch.int32, device=dev)
+                            for ch, cid in zip(chunks, cids)])
+        build = {"__k": (torch.arange(span_bucket, device=dev)
+                         + int(cmin)).to(torch.int32)}
+        for name, tab in (("__rank", rank_tab), ("__ok", ok_tab),
+                          ("__end", end_tab)):
+            build[name] = torch.from_numpy(np.ascontiguousarray(tab)).to(dev)
+        joined, hit, _, _ = kernels.lookup_join(
+            build, torch.ones(span_bucket, dtype=torch.bool, device=dev),
+            "__k", {"__k": cols[key].to(torch.int32)}, valid_in, "__k",
+            {"__rank": "__rank", "__ok": "__ok", "__end": "__end"},
+            build_slotted=True)
+        cols["__session"] = joined["__rank"].clamp(max=int(k) - 1)
+        valid = hit & (joined["__ok"] <= cidvec) & (cidvec < joined["__end"])
+        return self._run({self._driving_relation(): Batch(cols, valid)},
+                         agg_capacity, True,
+                         lambda: f"session emission, {len(chunks)} chunks")
 
     def execute_consts(self, chunks: list[Batch],
                        const_cols: dict[str, list],

@@ -564,3 +564,88 @@ def test_ysb_on_the_card_equals_cpu(dev):
         for name in ("campaign_id", "count"):
             np.testing.assert_array_equal(g.columns[name], c.columns[name])
         assert len(g.columns["count"]) == cfg.campaigns
+
+
+def _session_rows(results):
+    names = ("bidder", "bid_count", "start_time", "end_time")
+    return sorted(tuple(int(r.columns[c][i]) for c in names)
+                  for r in results for i in range(len(r.columns["bidder"])))
+
+
+@pytest.mark.parametrize("tier", ["device", "rollback", "generic"])
+def test_q11_on_the_card_equals_cpu(dev, tier, monkeypatch):
+    """q11 through ``StreamDriver.run`` on the card in each session tier
+    (the device tier also with an emission buffer of 64 sessions, which
+    forces rollbacks): the same tags and sink rows as the CPU path, and
+    the rows of ``oracle.q11_sessions``."""
+    import oracle
+    from flock_tpu_torch.runtime import device_session
+
+    epochs = generate_epochs(24, 20_000, 1)
+    if tier == "rollback":
+        monkeypatch.setattr(device_session, "CAP_OUT", 64)
+    if tier == "generic":
+        monkeypatch.setattr(device_session, "session_fast_spec",
+                            lambda *a, **kw: None)
+    drivers = [StreamDriver(get_query(11), 24, device=d) for d in (dev, "cpu")]
+    gpu, cpu = (d.run(epochs) for d in drivers)
+    assert [g.tag for g in gpu] == [c.tag for c in cpu] and len(gpu) > 1
+    for g, c in zip(gpu, cpu):
+        for name, col in c.columns.items():
+            assert g.columns[name].dtype == col.dtype
+            np.testing.assert_array_equal(g.columns[name], col)
+    want = oracle.q11_sessions([e["bid"] for e in epochs], gap=10)
+    assert _session_rows(gpu) == sorted(zip(*(
+        want[n].tolist() for n in ("bidder", "bid_count", "start_time",
+                                   "end_time"))))
+    if tier == "rollback":
+        assert drivers[0].session_stats.retries > 0
+
+
+def test_device_session_resume_on_the_card(dev, tmp_path):
+    """The device tier's checkpoint/resume on the card: epochs 0-7 through
+    ``step_impl``, the open sessions through ``to_payloads`` and a file
+    backend, a fresh driver resuming with ``run_device_sessions(...,
+    resume_payloads=..., t_base=8)``; the union of the emissions equals
+    the uninterrupted CPU run's rows."""
+    from flock_tpu_torch.batch import TS_BASE, Batch
+    from flock_tpu_torch.runtime import device_session as ds
+    from flock_tpu_torch.runtime.state import FileStateBackend
+    from flock_tpu_torch.runtime.stream import SessionState
+
+    key, tcol = SessionState.key, SessionState.time_col
+    epochs = generate_epochs(24, 20_000, 1)
+    spec = get_query(11)
+    gap, split = spec.window[1], 8
+    want = _session_rows(StreamDriver(spec, 24, device="cpu").run(epochs))
+    fs = ds.session_fast_spec(spec, key, "bid")
+    ea, accs = ds._acc_plan(fs, key, tcol)
+    ks = [e["bid"][key] for e in epochs]
+    m, kmax = min(int(k.min()) for k in ks), max(int(k.max()) for k in ks)
+    SE = ds._bucket(max(int(k.max()) - int(k.min()) + 1 for k in ks))
+    state = ds.init_state(ds._bucket(kmax - m + 1 + 8192) + SE, accs, dev)
+    rows = []
+    for t in range(split):
+        bid = {c: epochs[t]["bid"][c] for c in (key, tcol)}
+        b = Batch.from_numpy(bid, len(bid[key]), dev)
+        state, oc, _, ne, ovf = ds.step_impl(
+            key, tcol, ea, accs, SE, 1 << 16, True, gap, t + 1 - gap, m,
+            state, dict(b.columns), b.valid,
+            (int(bid[key].min()), int(bid[key].max())))
+        assert not bool(ovf)
+        n = int(ne)
+        host = ds.finish_names(fs, key, {c: a[:n].cpu().numpy()
+                                         for c, a in oc.items()})
+        rows += [(int(host["bidder"][i]), int(host["bid_count"][i]),
+                  int(host["start_time"][i]) + TS_BASE,
+                  int(host["end_time"][i]) + TS_BASE) for i in range(n)]
+    backend = FileStateBackend(root=str(tmp_path))
+    for p in ds.to_payloads(state, m, accs, "card", split):
+        backend.write(0, p)
+    payloads = [backend.read("card", 0, 0, s)
+                for s in backend.list_seqs("card", 0, 0)]
+    assert len(payloads[0].columns["__key"]) > 0
+    res = ds.run_device_sessions(StreamDriver(spec, 24, device=dev),
+                                 epochs[split:], None, fs,
+                                 resume_payloads=payloads, t_base=split)
+    assert sorted(rows + _session_rows(res)) == want

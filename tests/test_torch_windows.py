@@ -148,8 +148,10 @@ def test_stagger_needs_occupancy_and_other_kinds_raise(epochs):
     port, _ = _drivers(2, ("stagger", 3))
     with pytest.raises(ValueError, match="occupancy"):
         port._window_epoch_ranges()
-    with pytest.raises(NotImplementedError, match="session"):
-        _drivers(2, ("session", 10))[0].run(epochs)
+    # session windows run (q11's slice): q2 over sessions takes the generic
+    # tier in both engines, with equal results
+    port, ref = _drivers(2, ("session", 10))
+    _same_results(port.run(epochs), ref.run(epochs))
     # global windows run (q12); over a plan with no single-key aggregate
     # both engines refuse them alike
     for driver in _drivers(2, ("global", 10)):
