@@ -75,10 +75,24 @@ and the script exits non-zero:
    (extremes, negative values, values equal in their high or in their low
    32 bits, one slot, keys K1's window misses, no valid row), each also
    against numpy;
+   The SQL phases (``sql``, ``sql windows``, ``sql ysb``): every SQL
+   text of tests/test_sql.py, q6's and q11's (``GROUP BY bidder``),
+   lowered by ``sql_to_spec`` and run through ``StreamDriver.run`` on the
+   bench epochs as the hand plans are (less their plain CPU pass), each
+   run's rows against its hand plan's from this run and the numpy
+   version (SQL q6's averages to rtol 1e-9), q4's, q9's and q13's numbers
+   beside their hand plans' (q4 and q9 with the same launches: K1 kept);
+   the float-key join (q13's side input as float32 keys, one bench
+   window's bids) against the CPU path; ``cli.main`` in process:
+   ``fsql`` with SQL q4 over the bench stream as one window (its row
+   count against ``numpy_q4``) and ``nexmark run -q 4 --metrics``; SQL q5
+   (hopping) and q7 (tumbling) on the 15 s epochs and YSB's SQL on the
+   YSB window, against the hand plans' rows and numpy;
 4. the duplicate configuration (10 s x 350 events/s, 3 generators, one 10 s
-   window) for q4, q9, q6 and q3 on the card against numpy — q4, q9 and q6
-   rerun the window with the duplicate-faithful fallback — and q3 over
-   that window with every person row repeated, which reruns too;
+   window) for q4, q9, q6, SQL q4 and q3 on the card against numpy — q4,
+   q9, q6 and SQL q4 rerun the window with the duplicate-faithful
+   fallback, SQL q4's rows equal to q4's — and q3 over that window with
+   every person row repeated, which reruns too;
 5. the card's name and power limit, then one JSON result line.
 
 Each phase prints its seconds (a ``phase <name>`` line).
@@ -138,6 +152,74 @@ QUERY_KERNELS = {"q4": ("join_agg", "dense_agg"),
                  "q11-generic": ("dense_agg", "gather"),
                  "q0": (), "q1": (), "q2": (), "q10": (), "q2-rows": (),
                  "q2-sliding": (), "q2-stagger": ()}
+
+
+# the SQL runs' kernels: as their hand plans', but SQL q6 is not fused (a
+# Rank sits between its join and its aggregate: the join slots on K2 and
+# gathers on K3) and SQL q11's text is one aggregate by bidder
+QUERY_KERNELS.update({
+    "sql-q4": ("join_agg", "dense_agg"),
+    "sql-q9": ("join_agg", "dense_agg", "gather"),
+    "sql-q13": ("dense_agg", "gather"), "sql-q3": ("dense_agg", "gather"),
+    "sql-q5": ("dense_agg", "gather"), "sql-q7": ("dense_agg", "gather"),
+    "sql-q8": ("dense_agg",), "sql-q6": ("dense_agg", "gather"),
+    "sql-q11": ("dense_agg",), "sql-ysb": ("dense_agg", "gather"),
+    "sql-q5-hopping": ("dense_agg", "gather"),
+    "sql-q7-tumbling": ("dense_agg", "gather"),
+    "sql-q0": (), "sql-q1": (), "sql-q2": (), "sql-q10": (),
+    "cli-fsql-q4": ("join_agg", "dense_agg"),
+    "cli-nexmark-q4": ("join_agg", "dense_agg")})
+
+# tests/test_sql.py's texts (NEXMARK_SQL, Q6_SQL, YSB_SQL) and q11's
+# (test_sql_q11_reference_text), copied: the script imports nothing of
+# tests/ but torch_kernel_cases
+SQL_TEXTS = {
+    0: "SELECT * FROM bid;",
+    1: "SELECT auction, bidder, 0.908 * price AS price, b_date_time FROM bid;",
+    2: "SELECT auction, price FROM bid WHERE auction % 123 = 0;",
+    3: ("SELECT name, city, state, a_id FROM auction INNER JOIN person "
+        "ON seller = p_id WHERE category = 10 AND (state = 'or' OR "
+        "state = 'id' OR state = 'ca');"),
+    4: ("SELECT category, Avg(final) AS avg_final FROM (SELECT Max(price) AS "
+        "final, category FROM auction INNER JOIN bid ON a_id = auction WHERE "
+        "b_date_time BETWEEN a_date_time AND expires GROUP BY a_id, category"
+        ") AS Q GROUP BY category;"),
+    5: ("SELECT auction, num FROM (SELECT auction, Count(*) AS num FROM bid "
+        "GROUP BY auction) AS AuctionBids INNER JOIN (SELECT Max(num) AS "
+        "maxn FROM (SELECT auction, Count(*) AS num FROM bid GROUP BY "
+        "auction) AS CountBids) AS MaxBids ON num = maxn;"),
+    7: ("SELECT auction, price, bidder, b_date_time FROM bid JOIN (SELECT "
+        "Max(price) AS maxprice FROM bid) AS B1 ON price = maxprice;"),
+    8: ("SELECT p_id, name FROM (SELECT p_id, name FROM person GROUP BY "
+        "p_id, name) AS P JOIN (SELECT seller FROM auction GROUP BY seller)"
+        " AS A ON p_id = seller;"),
+    9: ("SELECT auction, bidder, price, b_date_time FROM bid JOIN (SELECT "
+        "a_id AS id, Max(price) AS final FROM auction INNER JOIN bid ON "
+        "a_id = auction WHERE b_date_time BETWEEN a_date_time AND expires "
+        "GROUP BY a_id) AS Q ON auction = id AND price = final;"),
+    10: "SELECT auction, bidder, price, b_date_time FROM bid;",
+    13: ("SELECT auction, bidder, price, b_date_time, value FROM bid JOIN "
+         "side_input ON auction = key;"),
+    6: ("SELECT seller, Avg(price) AS avg_price FROM (SELECT seller, price, "
+        "b_date_time, Row_number() OVER (partition BY seller ORDER BY "
+        "b_date_time DESC) AS time_rank FROM (SELECT seller, a_id, price, "
+        "b_date_time, Row_number() OVER (partition BY a_id ORDER BY price "
+        "DESC) AS price_rank FROM auction INNER JOIN bid ON a_id = auction "
+        "WHERE b_date_time BETWEEN a_date_time AND expires ORDER BY a_id, "
+        "price DESC) AS Q WHERE price_rank = 1) AS R WHERE time_rank <= 10 "
+        "GROUP BY seller;"),
+    11: ("SELECT bidder, Count(*) AS bid_count, Min(b_date_time) AS "
+         "start_time, Max(b_date_time) AS end_time FROM bid "
+         "GROUP BY bidder;"),
+}
+SQL_YSB = ("SELECT campaign_id, Count(*) AS count FROM ad_event INNER JOIN "
+           "campaign ON ad_id = c_ad_id WHERE event_type = 'view' GROUP BY "
+           "campaign_id;")
+
+# every phase_query run's window results and numbers, by label: the SQL
+# runs are held against their hand plans' from the same run
+RESULTS: dict = {}
+RECORDS: dict = {}
 
 
 def sh(*cmd: str) -> str:
@@ -1601,13 +1683,20 @@ def consts_path(spec, epochs: list, seconds: int) -> Path:
 def phase_query(label: str, spec, main, path_of, numpy_fn, seconds: int,
                 eps: int, gen_s: float, card_line: str,
                 staged_once: int | None = None,
-                inputs: dict | None = None) -> dict:
+                inputs: dict | None = None, cpu_check: bool = True,
+                compare=None) -> dict:
     """One run on the card: ``main()`` is the main path (returns the
     window results; the executor it makes runs the comparisons and the
     timed passes too), ``path_of()`` the way its windows reach the
     executor.  Returns the launches of every kernel over the main path's
     run; ``inputs`` gets the main path's kernel calls that
-    ``WINDOWED_PICKS[label]`` names."""
+    ``WINDOWED_PICKS[label]`` names.  ``cpu_check=False`` leaves out the
+    plain CPU path's pass (a SQL run whose hand plan held it in this run:
+    the rows are held against the hand plan's instead); ``compare``
+    (default ``_same_row_set``) holds rows against the numpy version's.
+    The window results and the run's numbers stay in ``RESULTS`` and
+    ``RECORDS`` under ``label``."""
+    compare = compare or _same_row_set
     from flock_tpu_torch.runtime.executor import LocalExecutor
 
     # the main path, with every launch counter at zero before it
@@ -1643,17 +1732,19 @@ def phase_query(label: str, spec, main, path_of, numpy_fn, seconds: int,
     if [tag for tag, _ in path.windows] != [r.tag for r in results]:
         raise AssertionError(f"{label}: window tags differ")
     cpu = LocalExecutor(spec, device="cpu", side_input=ex.side_input)
-    gpu_in, cpu_in = path.stage(ex), path.stage(cpu)
+    gpu_in = path.stage(ex)
+    cpu_in = path.stage(cpu) if cpu_check else None
     out_rows = 0
     for i, ((tag, tables), res) in enumerate(zip(path.windows, results)):
         got = _host(ex, path.run(ex, gpu_in, i))
-        plain = _host(cpu, path.run(cpu, cpu_in, i))
         want = numpy_fn(tables)
-        _same_rows(got, plain, list(plain),
-                   f"{label} {tag}: card vs CPU plain path")
-        _same_row_set(got, want, list(want), f"{label} {tag}: card vs numpy")
-        _same_row_set(res.columns, want, spec.schema.names,
-                      f"{label} {tag}: driver vs numpy")
+        if cpu_check:
+            plain = _host(cpu, path.run(cpu, cpu_in, i))
+            _same_rows(got, plain, list(plain),
+                       f"{label} {tag}: card vs CPU plain path")
+        compare(got, want, list(want), f"{label} {tag}: card vs numpy")
+        compare(res.columns, want, spec.schema.names,
+                f"{label} {tag}: driver vs numpy")
         out_rows += len(res.columns[spec.schema.names[0]])
     del gpu_in, cpu_in
 
@@ -1715,14 +1806,21 @@ def phase_query(label: str, spec, main, path_of, numpy_fn, seconds: int,
            "launches": launches, "fallback_runs": ex.fallback_runs,
            "staged_batches": len(staged_calls), "card": card_line}
     print(f"{label}: " + json.dumps(rec), flush=True)
+    RESULTS[label] = results
+    RECORDS[label] = {
+        "compute_ms": best * 1e3, "feed_incl_ms": best_incl * 1e3,
+        "idle_share": profile_summary(events, best * 1e3)["idle_share"],
+        "aten_ops": extra["aten_ops"],
+        "kernel_launches": extra["kernel_launches"], "launches": launches}
     return launches
 
 
 def phase_stream(label: str, spec, epochs: list, seconds: int, eps: int,
                  gen_s: float, card_line: str, numpy_fn=None,
-                 inputs: dict | None = None) -> dict:
+                 inputs: dict | None = None, **kw) -> dict:
     """A query through ``StreamDriver.run`` on the card (see
-    ``phase_query``); range windows must stage each epoch once."""
+    ``phase_query``, which takes ``kw``); range windows must stage each
+    epoch once."""
     from flock_tpu_torch.runtime.stream import StreamDriver
     from flock_tpu_torch.runtime.executor import _pow2_bucket
 
@@ -1746,7 +1844,7 @@ def phase_stream(label: str, spec, epochs: list, seconds: int, eps: int,
             + ("side_input" in spec.relations)
     return phase_query(label, spec, main, path_of,
                        numpy_fn or (lambda t: numpy_query(spec.number, t)),
-                       seconds, eps, gen_s, card_line, once, inputs)
+                       seconds, eps, gen_s, card_line, once, inputs, **kw)
 
 
 def phase_q12(epochs: list, gen_s: float, card_line: str,
@@ -1807,31 +1905,65 @@ def phase_q12(epochs: list, gen_s: float, card_line: str,
     return launches
 
 
-def phase_ysb(card_line: str, inputs: dict) -> dict:
-    """YSB at bench.py's size through ``run_ysb`` on the card."""
+def ysb_windows():
+    """(config, windows, generation seconds) of YSB at bench.py's size."""
     from flock_tpu_torch.datagen.ysb import YsbConfig
     from flock_tpu_torch.queries.ysb import (campaign_table,
-                                             generate_ysb_epochs, run_ysb,
-                                             ysb_capacities, ysb_query)
+                                             generate_ysb_epochs, ysb_query)
 
     cfg = YsbConfig(seconds=YSB_SECONDS, events_per_second=BENCH_EPS)
-    spec = ysb_query()
     t0 = time.perf_counter()
     epochs = generate_ysb_epochs(cfg)
     gen_s = time.perf_counter() - t0
-    w = spec.window[1]
+    w = ysb_query().window[1]
     camp = campaign_table(cfg)
     windows = [(("win", k * w, k * w + w), {
         "ad_event": {c: np.concatenate([e["ad_event"][c]
                                         for e in epochs[k * w:(k + 1) * w]])
                      for c in epochs[0]["ad_event"]},
         "campaign": camp}) for k in range(cfg.seconds // w)]
-    del epochs
-    caps = ysb_capacities(cfg, w)
+    return cfg, windows, gen_s
+
+
+def phase_ysb(card_line: str, inputs: dict, cfg, windows,
+              gen_s: float) -> dict:
+    """YSB at bench.py's size through ``run_ysb`` on the card."""
+    from flock_tpu_torch.queries.ysb import run_ysb, ysb_capacities, ysb_query
+
+    spec = ysb_query()
+    caps = ysb_capacities(cfg, spec.window[1])
     return phase_query("ysb", spec, lambda: run_ysb(cfg, device="cuda"),
                        lambda: window_path(windows, lambda t: caps),
                        numpy_ysb, cfg.seconds, cfg.events_per_second, gen_s,
                        card_line, inputs=inputs)
+
+
+def phase_sql_ysb(card_line: str, cfg, windows, gen_s: float) -> dict:
+    """YSB's SQL on the card: each window through a ``LocalExecutor`` of
+    the lowered spec at ``run_ysb``'s capacities; rows against
+    ``numpy_ysb`` and ``run_ysb``'s from this run."""
+    from flock_tpu_torch.queries.ysb import ysb_capacities
+    from flock_tpu_torch.runtime.executor import LocalExecutor
+    from flock_tpu_torch.runtime.stream import WindowResult
+
+    spec = sql_spec("ysb")
+    caps = ysb_capacities(cfg, spec.window[1])
+
+    def main():
+        ex = LocalExecutor(spec, device="cuda")
+        return [WindowResult(tag, ex.materialize(ex.execute_window(t, caps)))
+                for tag, t in windows]
+
+    launches = phase_query("sql-ysb", spec, main,
+                           lambda: window_path(windows, lambda t: caps),
+                           numpy_ysb, cfg.seconds, cfg.events_per_second,
+                           gen_s, card_line, cpu_check=False)
+    names = ["campaign_id", "count"]
+    same_as_hand("sql-ysb", RESULTS.pop("sql-ysb"), RESULTS.pop("ysb"),
+                 names, names)
+    print("sql-ysb: rows equal run_ysb's and the numpy version's",
+          flush=True)
+    return launches
 
 
 Q11_NAMES = ["bidder", "bid_count", "start_time", "end_time"]
@@ -2116,8 +2248,9 @@ def _duplicate_persons(window: dict) -> dict:
 def phase_duplicates() -> None:
     """tests/test_sqlite_oracle.py:280's configuration: misaligned
     generators repeat auction ids (never person ids), so q4's and q9's
-    fused passes escape and the window reruns; q3 runs clean there, and
-    reruns once over the window with every person row repeated."""
+    fused passes escape and the window reruns (SQL q4's too, its rows equal
+    hand q4's); q3 runs clean there, and reruns once over the window with
+    every person row repeated."""
     from flock_tpu_torch.queries.nexmark import get_query
     from flock_tpu_torch.runtime.executor import LocalExecutor
     from flock_tpu_torch.runtime.stream import StreamDriver, generate_epochs
@@ -2126,21 +2259,28 @@ def phase_duplicates() -> None:
     seconds = 10
     epochs = generate_epochs(seconds, 350, 3)
     window = concat_relations(epochs, ("person", "auction", "bid"))
-    for q, reruns in ((4, 1), (9, 1), (6, 1), (3, 0)):
-        spec = get_query(q)
+    for q, reruns in ((4, 1), (9, 1), (6, 1), (3, 0), ("sql-q4", 1)):
+        spec = sql_spec(4) if q == "sql-q4" else get_query(q)
         driver = StreamDriver(spec, seconds, device="cuda")
         driver._window_epoch_ranges = lambda occupancy=None: [
             (("win", 0, seconds), list(range(seconds)))]
         results = driver.run(epochs)
         if driver.executor.fallback_runs != reruns:
-            raise AssertionError(f"q{q} duplicate window: fallback_runs "
+            raise AssertionError(f"{q} duplicate window: fallback_runs "
                                  f"{driver.executor.fallback_runs}, not "
                                  f"{reruns}")
-        want = numpy_query(q, window)
+        want = numpy_query(4 if q == "sql-q4" else q, window)
         _same_row_set(results[0].columns, want, spec.schema.names,
-                      f"q{q} duplicate window vs numpy")
-        print(f"duplicates q{q}: fallback_runs={driver.executor.fallback_runs}"
-              f" rows={len(want[spec.schema.names[0]])} ok", flush=True)
+                      f"{q} duplicate window vs numpy")
+        if q == 4:
+            hand_q4 = results
+        if q == "sql-q4":
+            same_as_hand("duplicates sql-q4", results, hand_q4,
+                         spec.schema.names, spec.schema.names)
+        name = q if q == "sql-q4" else f"q{q}"
+        print(f"duplicates {name}: fallback_runs="
+              f"{driver.executor.fallback_runs} "
+              f"rows={len(want[spec.schema.names[0]])} ok", flush=True)
     dup = _duplicate_persons(window)
     spec = get_query(3)
     ex = LocalExecutor(spec, device="cuda")
@@ -2154,6 +2294,247 @@ def phase_duplicates() -> None:
                   "q3 duplicate persons vs numpy")
     print(f"duplicates q3 (persons repeated): fallback_runs={ex.fallback_runs}"
           f" rows={len(want['a_id'])} ok", flush=True)
+
+
+# -- the SQL frontend and the CLI ---------------------------------------------
+
+
+def sql_spec(q, window=("elementwise",)):
+    """``sql_to_spec`` of SQL_TEXTS[q] (SQL_YSB for ``"ysb"``)."""
+    from flock_tpu_torch.sql.catalog import nexmark_catalog, ysb_catalog
+    from flock_tpu_torch.sql.lower import sql_to_spec
+
+    if q == "ysb":
+        return sql_to_spec(SQL_YSB, ysb_catalog(), window=("tumbling", 10))
+    return sql_to_spec(SQL_TEXTS[q], nexmark_catalog(), window=window)
+
+
+def numpy_bidders(t: dict) -> dict:
+    """Independent SQL q11 text over one window: per bidder, the bids and
+    the least and greatest ``b_date_time``."""
+    bid = t["bid"]
+    order = np.argsort(bid["bidder"], kind="stable")
+    b, ts = bid["bidder"][order], bid["b_date_time"][order]
+    first = np.ones(len(b), bool)
+    first[1:] = b[1:] != b[:-1]
+    idx = np.flatnonzero(first)
+    return {"bidder": b[idx], "bid_count": np.diff(np.append(idx, len(b))),
+            "start_time": np.minimum.reduceat(ts, idx),
+            "end_time": np.maximum.reduceat(ts, idx)}
+
+
+def _close_row_set(got: dict, want: dict, names, what: str) -> None:
+    """SQL q6's comparison, tests/test_sql.py's: the first column (the
+    sellers) exact, the second (the averages) to rtol 1e-9 (ROW_NUMBER's
+    order among ties is unspecified)."""
+    key, val = names[0], names[1]
+    g, w = np.asarray(got[key]), np.asarray(want[key])
+    go, wo = np.argsort(g, kind="stable"), np.argsort(w, kind="stable")
+    if not np.array_equal(g[go], w[wo]):
+        raise AssertionError(f"{what}: {key} differs")
+    if not np.allclose(np.asarray(got[val])[go], np.asarray(want[val])[wo],
+                       rtol=1e-9, atol=0):
+        raise AssertionError(f"{what}: {val} differs beyond rtol 1e-9")
+
+
+def same_as_hand(label: str, results, hand, sql_names, hand_names,
+                 compare=_same_row_set) -> None:
+    """A SQL run's windows against its hand plan's from the same run: the
+    same tags, and the same rows under the hand plan's names."""
+    if [r.tag for r in results] != [h.tag for h in hand]:
+        raise AssertionError(f"{label}: window tags differ from the hand "
+                             "plan's")
+    for r, h in zip(results, hand):
+        compare(r.columns, {s: h.columns[n] for s, n in zip(sql_names,
+                                                            hand_names)},
+                sql_names, f"{label} {r.tag}: SQL vs hand plan")
+
+
+def sql_beside_hand(label: str, hand_label: str,
+                    same_launches: bool) -> None:
+    """The SQL run's compute-only and feed-inclusive ms, idle share, ATen
+    operations and kernel launches beside its hand plan's; for q4 and q9
+    the launches must be the same (K1 kept)."""
+    sql, hand = RECORDS[label], RECORDS[hand_label]
+    print(f"{label} beside {hand_label}: " + json.dumps(
+        {"sql": sql, "hand": hand}), flush=True)
+    if same_launches and (sql["launches"] != hand["launches"]
+                          or sql["kernel_launches"]
+                          != hand["kernel_launches"]):
+        raise AssertionError(f"{label}: launches {sql['launches']} "
+                             f"({sql['kernel_launches']}), the hand plan's "
+                             f"{hand['launches']} "
+                             f"({hand['kernel_launches']})")
+
+
+def phase_sql(epochs: list, gen_s: float, card_line: str,
+              launches: dict) -> None:
+    """Every SQL text of tests/test_sql.py, q6's and q11's lowered by
+    ``sql_to_spec`` and run through ``StreamDriver.run`` on the bench
+    epochs (element-wise windows), as ``phase_stream`` runs the hand plans
+    (every kernel of the path launched, no plain kernel version on a card
+    tensor, each epoch staged once, rows against the numpy version), less
+    the plain CPU pass the hand plans already made: each SQL run's rows
+    are held against its hand plan's from this run (q3, q5, q7 and q8,
+    whose hand plans ran at other windows, run theirs here), SQL q6's to
+    the reference test's tolerance.  q4's, q9's and q13's numbers are
+    printed beside their hand plans'; q4 and q9 must make the same
+    launches (K1 kept)."""
+    from flock_tpu_torch.queries.nexmark import get_query
+    from flock_tpu_torch.runtime.stream import StreamDriver
+
+    for q in (4, 9, 13, 0, 1, 2, 10, 3, 5, 7, 8, 6, 11):
+        label = f"sql-q{q}"
+        spec = sql_spec(q)
+        compare = _close_row_set if q == 6 else _same_row_set
+        if q == 11:
+            numpy_fn, hand = numpy_bidders, None
+        else:
+            hspec = get_query(q)
+            names = hspec.schema.names
+
+            def numpy_fn(t, q=q, names=names, sql_names=spec.schema.names):
+                want = numpy_query(q, t)
+                return {s: want[n] for s, n in zip(sql_names, names)}
+            hand = RESULTS.get(f"q{q}")
+            if hand is None:
+                hand = StreamDriver(dataclasses.replace(
+                    hspec, window=("elementwise",)), BENCH_SECONDS,
+                    device="cuda").run(epochs)
+        launches[label] = phase_stream(
+            label, spec, epochs, BENCH_SECONDS, BENCH_EPS, gen_s, card_line,
+            numpy_fn=numpy_fn, cpu_check=False, compare=compare)
+        if hand is not None:
+            same_as_hand(label, RESULTS[label], hand, spec.schema.names,
+                         names, compare)
+        if q in (4, 9, 13):
+            sql_beside_hand(label, f"q{q}", same_launches=q != 13)
+        del RESULTS[label]
+        print(f"{label}: rows equal the hand plan's and the numpy "
+              "version's", flush=True)
+
+
+def float_key_join(epochs: list, card_line: str) -> None:
+    """The float-key join (``kernels.sorted_lookup_join``, plain PyTorch:
+    a sort and a binary search) on the card: q13's side input (10,000
+    rows, keys as float32, a tenth of its rows invalid) probed by one
+    bench window's bids (auction ids as float32: most miss; row 0 a NaN),
+    row for row the CPU path's."""
+    from flock_tpu_torch.ops import kernels
+    from flock_tpu_torch.runtime.tables import default_side_input
+
+    si = default_side_input()
+    rng = np.random.default_rng(SEED)
+    build = {"key": torch.from_numpy(si["key"].astype(np.float32)),
+             "value": torch.from_numpy(si["value"])}
+    bvalid = torch.from_numpy(rng.random(len(si["key"])) >= 0.1)
+    bid = epochs[0]["bid"]
+    pk = bid["auction"].astype(np.float32)
+    pk[0] = np.nan
+    probe = {"auction": torch.from_numpy(pk),
+             "price": torch.from_numpy(bid["price"])}
+    pvalid = torch.ones(len(pk), dtype=torch.bool)
+
+    def join(b, bv, p, pv):
+        return kernels.sorted_lookup_join(b, bv, "key", p, pv, "auction",
+                                          {"value": "value"})
+
+    cout, chit = join(build, bvalid, probe, pvalid)
+    on_card = ({c: t.cuda() for c, t in build.items()}, bvalid.cuda(),
+               {c: t.cuda() for c, t in probe.items()}, pvalid.cuda())
+
+    def run():
+        return join(*on_card)
+    gout, ghit = run()
+    if not torch.equal(ghit.cpu(), chit) or bool(chit[0]):
+        raise AssertionError("float-key join: hits differ from the CPU "
+                             "path's")
+    for c in cout:
+        if not torch.equal(gout[c].cpu()[chit], cout[c][chit]):
+            raise AssertionError(f"float-key join: {c} differs from the CPU "
+                                 "path's")
+    print("float-key join: " + json.dumps({
+        "build_rows": len(si["key"]), "probe_rows": len(pk),
+        "hits": int(chit.sum()), "ms": cuda_ms(run), "card": card_line}),
+        flush=True)
+
+
+def _cli_lines(argv: list[str], label: str, launches: dict,
+               kernels: tuple) -> list[str]:
+    """``cli.main(argv)`` in this process on the card, its standard output
+    captured; launch counts zeroed before it and read after it, and
+    ``kernels`` must have launched."""
+    import io
+
+    from flock_tpu_torch import cli
+    from flock_tpu_torch.utils.metrics import METRICS
+
+    wrappers = counters()
+    for w in wrappers.values():
+        w.launches = 0
+    METRICS.counters.clear()
+    METRICS.timings.clear()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), no_plain_on_card():
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    launches[label] = {k: w.launches for k, w in wrappers.items()}
+    if rc != 0 or [k for k in kernels if not launches[label][k]]:
+        raise AssertionError(f"{label}: rc {rc}, launches {launches[label]}")
+    lines = buf.getvalue().splitlines()
+    print(f"{label}: " + json.dumps({"argv": [a[:40] for a in argv],
+                                     "lines": lines[-8:],
+                                     "launches": launches[label]}),
+          flush=True)
+    return lines
+
+
+def phase_cli(epochs: list, launches: dict) -> None:
+    """The entry point a user types, in process: ``fsql`` with SQL q4 over
+    the bench stream as one window (its row count against ``numpy_q4``
+    over the concatenated epochs), and ``nexmark run -q 4 --metrics``
+    (its windows' row counts against StreamDriver's from this run, and a
+    metrics report that counts its 4 windows)."""
+    from flock_tpu_torch.runtime.tables import concat_relations
+
+    size = ["-s", str(BENCH_SECONDS), "-e", str(BENCH_EPS)]
+    lines = _cli_lines(["fsql", SQL_TEXTS[4], *size], "cli-fsql-q4",
+                       launches, QUERY_KERNELS["cli-fsql-q4"])
+    whole = concat_relations(epochs, ("auction", "bid"))
+    want = len(numpy_q4(whole)["category"])
+    if lines[0] != f"window ('sql',): {want} rows":
+        raise AssertionError(f"fsql: {lines[0]!r}, numpy_q4 has {want} rows")
+    lines = _cli_lines(["nexmark", "run", "-q", "4", *size, "--metrics"],
+                       "cli-nexmark-q4", launches,
+                       QUERY_KERNELS["cli-nexmark-q4"])
+    want = [f"window {r.tag}: {len(r.columns['category'])} rows"
+            for r in RESULTS["q4"]]
+    if lines[:len(want)] != want or f"q4: {len(want)} windows" not in \
+            lines[len(want)]:
+        raise AssertionError(f"nexmark run: {lines[:len(want) + 1]}, the "
+                             f"StreamDriver's {want}")
+    if f"{'q4.windows':<20} {len(want)}" not in lines:
+        raise AssertionError("nexmark run --metrics: no q4.windows line of "
+                             f"{len(want)}")
+
+
+def phase_sql_windows(epochs: list, gen_s: float, card_line: str,
+                      launches: dict) -> None:
+    """SQL q5 over hopping (10 s, hop 5) and SQL q7 over tumbling (10 s)
+    windows on the 15 s epochs, through ``StreamDriver.run`` on the card:
+    rows against the numpy versions and the hand plans' from this run."""
+    for q, win, label in ((5, ("hopping", 10, 5), "sql-q5-hopping"),
+                          (7, ("tumbling", 10), "sql-q7-tumbling")):
+        from flock_tpu_torch.queries.nexmark import get_query
+
+        spec = sql_spec(q, win)
+        launches[label] = phase_stream(
+            label, spec, epochs, WIN_SECONDS, BENCH_EPS, gen_s, card_line,
+            numpy_fn=lambda t, q=q: numpy_query(q, t), cpu_check=False)
+        same_as_hand(label, RESULTS.pop(label), RESULTS[f"q{q}"],
+                     spec.schema.names, get_query(q).schema.names)
+        print(f"{label}: rows equal the hand plan's and the numpy "
+              "version's", flush=True)
 
 
 def kernels_line(cases: list[dict], launches: dict[str, dict]) -> dict:
@@ -2229,6 +2610,11 @@ def main() -> int:
         launches["q11-bench"], _ = phase_q11(
             "q11-bench", epochs, BENCH_SECONDS, BENCH_EPS, gen_s, card_line,
             timed_numpy_q11("q11-bench", epochs), inputs)
+    with phase_seconds("sql"):
+        phase_sql(epochs, gen_s, card_line, launches)
+        float_key_join(epochs, card_line)
+        phase_cli(epochs, launches)
+    RESULTS.clear()
     del epochs
     with phase_seconds("q3"):
         t0 = time.perf_counter()
@@ -2251,6 +2637,9 @@ def main() -> int:
             launches[label] = phase_stream(
                 label, dataclasses.replace(get_query(2), window=win), ep,
                 WIN_SECONDS, BENCH_EPS, gen_s, card_line)
+    with phase_seconds("sql windows"):
+        phase_sql_windows(epochs, gen_s, card_line, launches)
+        RESULTS.clear()
     with phase_seconds("q12"):
         launches["q12"] = phase_q12(epochs, gen_s, card_line, inputs)
     with phase_seconds("q11 device tier"):
@@ -2267,7 +2656,11 @@ def main() -> int:
         phase_q11_resume(epochs, WIN_SECONDS, card_line, device_results)
     del epochs, want, device_results
     with phase_seconds("ysb"):
-        launches["ysb"] = phase_ysb(card_line, inputs)
+        ysb = ysb_windows()
+        launches["ysb"] = phase_ysb(card_line, inputs, *ysb)
+    with phase_seconds("sql ysb"):
+        launches["sql-ysb"] = phase_sql_ysb(card_line, *ysb)
+        del ysb
     with phase_seconds("main-path kernel cases"):
         cases += time_cases(env, _windowed_cases(inputs))
         del inputs

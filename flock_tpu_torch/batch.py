@@ -143,7 +143,7 @@ class Batch:
 class Schema:
     """Host-side metadata: column order, dictionaries (the vocabulary of
     each dictionary-coded column) and timestamp columns, in the reference's
-    field order.
+    field order, with its ``decode`` (the CLI's ``--show`` and the sinks).
 
     ``f64_recompute`` maps an output column to an exact float64 recompute
     recipe applied at the sink from carried integer basis columns:
@@ -154,3 +154,16 @@ class Schema:
     dictionaries: dict[str, list[str]] = field(default_factory=dict)
     timestamp_cols: tuple[str, ...] = ()
     f64_recompute: dict[str, tuple] = field(default_factory=dict)
+
+    def decode(self, cols: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+        """The named columns in schema order, dictionary codes replaced by
+        their strings (object arrays), as the reference's ``decode``."""
+        out = {}
+        for n in self.names:
+            v = cols[n]
+            if n in self.dictionaries:
+                vocab = np.asarray(self.dictionaries[n], dtype=object)
+                out[n] = vocab[v]
+            else:
+                out[n] = v
+        return out

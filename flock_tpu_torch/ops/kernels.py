@@ -10,8 +10,9 @@ inside the op.  PyTorch has real scatters (``index_add_``,
 formulations the TPU needed have no counterpart here.  Dense int32
 aggregation goes to kernel K2 (``ops/dense_agg.py``), the probe side of a
 lookup join to kernel K3 (``ops/gather.py``).  q6's ``rank_in_group`` and
-``sorted_segment_aggregate`` are plain PyTorch, as the reference computes
-them in XLA, not Pallas.
+``sorted_segment_aggregate`` and the float-key join's ``build_lookup`` and
+``sorted_lookup_join`` are plain PyTorch, as the reference computes them in
+XLA, not Pallas.
 """
 
 from __future__ import annotations
@@ -211,6 +212,40 @@ def group_aggregate(cols: dict[str, torch.Tensor], valid: torch.Tensor,
     out_valid = torch.arange(out_capacity, device=seg.device) \
         < torch.clamp(n_seg, max=out_capacity)
     return out, out_valid, n_seg > out_capacity, false_flag(seg.device)
+
+
+def build_lookup(build_cols: dict[str, torch.Tensor], build_valid: torch.Tensor,
+                 key: str):
+    """Sort the build side by key for binary-search probing.  Invalid rows
+    get the ``I32_MAX`` sentinel (in the key's dtype, as the reference's
+    ``jnp.where`` casts it) so they sort past any live key; the sort is
+    stable and carries every column by its permutation.  Returns
+    (sorted_key, sorted_cols, sorted_valid)."""
+    k = torch.where(build_valid, build_cols[key], I32_MAX)
+    sk, order = torch.sort(k, stable=True)
+    return sk, {n: c[order] for n, c in build_cols.items()}, build_valid[order]
+
+
+def sorted_lookup_join(build_cols: dict[str, torch.Tensor],
+                       build_valid: torch.Tensor, build_key: str,
+                       probe_cols: dict[str, torch.Tensor],
+                       probe_valid: torch.Tensor, probe_key: str,
+                       take: dict[str, str]):
+    """General-key N-to-1 join (float keys have no dense slot span): sort
+    the build side, binary-search the probes (left side, clamped to the
+    last row).  A probe row hits when its key equals the found build key,
+    that build row is valid and the probe row is valid; duplicate build
+    keys give the first match in the stable order only (the reference's
+    limit, kept).  Returns (out_cols, hit)."""
+    bk, bcols, bvalid = build_lookup(build_cols, build_valid, build_key)
+    pk = probe_cols[probe_key]
+    dt = torch.promote_types(bk.dtype, pk.dtype)
+    idx = torch.searchsorted(bk.to(dt), pk.to(dt)).clamp(max=bk.shape[0] - 1)
+    hit = (bk[idx] == pk) & bvalid[idx] & probe_valid
+    out = dict(probe_cols)
+    for src, dst in take.items():
+        out[dst] = bcols[src][idx]
+    return out, hit
 
 
 def lookup_join(build_cols: dict[str, torch.Tensor], build_valid: torch.Tensor,

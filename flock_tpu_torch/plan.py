@@ -283,14 +283,18 @@ def _lower_node(node: Node, tables, agg_capacity, fallback: bool,
     if isinstance(node, Join):
         b = lower(node.build, tables, agg_capacity, fallback, memo)
         p = lower(node.probe, tables, agg_capacity, fallback, memo)
-        if b.cols[node.build_key].is_floating_point() \
-                or p.cols[node.probe_key].is_floating_point():
-            raise NotImplementedError(
-                "Join on float keys (sorted_lookup_join) is not ported")
         # the escape rerun keeps a slotted build slotted: a fused node lowers
         # to its single-key Aggregate, which slots its output too
         b_slotted = _slot_dense(node.build, node.build_key)
-        if b_slotted and _slot_dense(node.probe, node.probe_key):
+        if b.cols[node.build_key].is_floating_point() \
+                or p.cols[node.probe_key].is_floating_point():
+            # float keys have no dense slot span: sort the build side and
+            # binary-search the probes (never an overflow or an escape)
+            cols, valid = kernels.sorted_lookup_join(
+                b.cols, b.valid, node.build_key, p.cols, p.valid,
+                node.probe_key, dict(node.take))
+            ovf = esc = kernels.false_flag(valid.device)
+        elif b_slotted and _slot_dense(node.probe, node.probe_key):
             # both sides are dense-slot aggregates over the same key domain:
             # the join is a shifted contiguous copy (q8)
             cols, valid, ovf = kernels.slot_join(
@@ -342,9 +346,9 @@ class FusedReplay:
     """The chain between a fused pass's Join and its Aggregate in kernel
     K1's terms: ``probe_cols`` are the probe side's columns plus what a
     middle Project computed from them, ``pred`` the Join's post_filter and
-    every middle Filter over those columns and the taken build columns (a
-    ``Conj`` when every part is one, else a callable), and ``aggs`` the
-    clean pass's aggregates over the same names."""
+    every middle Filter over those columns and the taken build columns, as
+    one ``Conj`` (None when there is none), and ``aggs`` the clean pass's
+    aggregates over the same names."""
 
     probe_cols: dict
     pred: object
@@ -352,22 +356,23 @@ class FusedReplay:
 
 
 def _renamed(pred, names: dict):
-    """``pred``, written over the chain's current column names, over the
-    replay's names; None when it reads a column the chain does not have,
-    or is a callable behind a Project that renamed columns."""
-    if isinstance(pred, Conj):
-        if any(c not in names for lhs, _, rhs in pred.terms
-               for c in (lhs, rhs)):
-            return None
-        return Conj(tuple((names[lhs], op, names[rhs])
-                          for lhs, op, rhs in pred.terms))
-    return pred if all(k == v for k, v in names.items()) else None
+    """The ``Conj`` ``pred``, written over the chain's current column
+    names, over the replay's names; None when it reads a column the chain
+    does not have, or is not a ``Conj``."""
+    if not isinstance(pred, Conj) or any(
+            c not in names for lhs, _, rhs in pred.terms for c in (lhs, rhs)):
+        return None
+    return Conj(tuple((names[lhs], op, names[rhs])
+                      for lhs, op, rhs in pred.terms))
 
 
 def fused_replay(node: FusedJoinAggregate, b_cols, p_cols
                  ) -> FusedReplay | None:
     """Replay the middle chain on the probe side, or None when K1 cannot
-    take it.  Filters become predicate terms.  A Project's string
+    take it.  Filters become predicate terms; K1 reads comparison terms
+    only, so a predicate that is not a ``Conj`` (a callable) sends the
+    node to the unfused path on every device, as the reference fuses only
+    what its kernels can evaluate.  A Project's string
     expressions are renames (resolved as ``fuse_join_aggregates`` resolves
     keys); its callables are evaluated on the probe columns alone, before
     K1, as one elementwise expression each (q6's ``__order``, which the
@@ -378,7 +383,11 @@ def fused_replay(node: FusedJoinAggregate, b_cols, p_cols
     probe = dict(p_cols)
     names = {c: c for c in p_cols}
     names.update({c: c for c in slot_names})
-    preds = [] if node.join.post_filter is None else [node.join.post_filter]
+    preds = []
+    if node.join.post_filter is not None:
+        if not isinstance(node.join.post_filter, Conj):
+            return None
+        preds.append(node.join.post_filter)
     for nd in node.middle:
         if isinstance(nd, Filter):
             pred = _renamed(nd.pred, names)
@@ -411,21 +420,16 @@ def fused_replay(node: FusedJoinAggregate, b_cols, p_cols
         if c is not None and c not in names:
             return None
         aggs.append((None if c is None else names[c], fn, o))
-    if not preds:
-        pred = None
-    elif all(isinstance(p, Conj) for p in preds):
-        pred = Conj(tuple(t for p in preds for t in p.terms))
-    else:
-        pred = lambda cols: torch.stack([p(cols) for p in preds]).all(dim=0)
+    pred = Conj(tuple(t for p in preds for t in p.terms)) if preds else None
     return FusedReplay(probe, pred, aggs)
 
 
 def fused_supported(node: FusedJoinAggregate, b_cols,
                     replay: FusedReplay | None) -> bool:
-    """Static pre-check: a chain K1 can replay, aggregating int32 columns
-    or an int64 probe column under max that nothing compares (the wrapper's
-    own rule, ``unsupported_aggs``); anything else takes the unfused
-    path."""
+    """Static pre-check: a chain K1 can replay (``fused_replay``),
+    aggregating int32 columns or an int64 probe column under max that
+    nothing compares (the wrapper's own rule, ``unsupported_aggs``);
+    anything else takes the unfused path."""
     if replay is None:
         return False
     slots = {dst: b_cols[src] for src, dst in node.join.take}

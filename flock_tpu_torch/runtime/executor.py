@@ -30,11 +30,14 @@ session's chunk range from three dense tables (``kernels.lookup_join`` with
 a slotted build: kernel K3), rows outside their session's range turn
 invalid, and the plan aggregates by ``__session`` (kernel K2).
 
-``execute_stacked`` is a later slice of the port.
+Every window is counted in ``utils.metrics.METRICS`` (windows, rows in,
+execute seconds), as in the reference.  ``execute_stacked`` is a later
+slice of the port.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -47,6 +50,7 @@ from flock_tpu_torch.ops import kernels
 from flock_tpu_torch.plan import Aggregate, Scan, compile_plan
 from flock_tpu_torch.queries.nexmark import QuerySpec
 from flock_tpu_torch.runtime.tables import default_side_input, window_relations
+from flock_tpu_torch.utils.metrics import METRICS
 
 
 class OverflowError(RuntimeError):
@@ -176,7 +180,8 @@ class LocalExecutor:
         return self._run({**self.statics(), **batches}, agg_cap,
                          check_overflow, lambda: "caps={}".format(tuple(
                              sorted((r, b.capacity)
-                                    for r, b in batches.items()))))
+                                    for r, b in batches.items()))),
+                         sum(b.capacity for b in batches.values()))
 
     def execute_epochs(self, epoch_tables: list[dict[str, Batch]],
                        check_overflow: bool = True) -> Batch:
@@ -203,20 +208,33 @@ class LocalExecutor:
                 for rel, b in epoch_tables[0].items()}
         tables = {**self.statics(), **merged}
         return self._run(tables, agg_cap, check_overflow,
-                         lambda: f"w={len(epoch_tables)}, caps={caps}")
+                         lambda: f"w={len(epoch_tables)}, caps={caps}",
+                         len(epoch_tables) * sum(c for _, c in caps))
+
+    @contextlib.contextmanager
+    def _metered(self, rows_in: int):
+        """One window in ``METRICS``, under the reference's names: the
+        window, its ``rows_in`` (its capacities: host ints, no sync) and
+        the time of the block (``execute_s``)."""
+        q = f"q{self.spec.number}"
+        METRICS.count(f"{q}.windows")
+        METRICS.count(f"{q}.rows_in", rows_in)
+        with METRICS.timer(f"{q}.execute_s"):
+            yield
 
     def _run(self, tables: dict[str, Batch], agg_cap: int,
-             check_overflow: bool, what) -> Batch:
+             check_overflow: bool, what, rows_in: int) -> Batch:
         """The plan over one window's tables, with the overflow and escape
         flags read in one host sync and the fallback rerun on an escape;
         ``what()`` describes the window's capacities for an overflow."""
-        fn = compile_plan(self.spec.plan, agg_cap)
-        out, overflow, escape = fn(tables)
-        overflow, escape = torch.stack([overflow, escape]).tolist()
-        if escape:
-            self.fallback_runs += 1
-            out, overflow, _ = fn(tables, fallback=True)
-            overflow = bool(overflow)
+        with self._metered(rows_in):
+            fn = compile_plan(self.spec.plan, agg_cap)
+            out, overflow, escape = fn(tables)
+            overflow, escape = torch.stack([overflow, escape]).tolist()
+            if escape:
+                self.fallback_runs += 1
+                out, overflow, _ = fn(tables, fallback=True)
+                overflow = bool(overflow)
         if check_overflow and overflow:
             raise OverflowError(
                 f"q{self.spec.number}: static capacity exceeded "
@@ -270,7 +288,8 @@ class LocalExecutor:
         valid = hit & (joined["__ok"] <= cidvec) & (cidvec < joined["__end"])
         return self._run({self._driving_relation(): Batch(cols, valid)},
                          agg_capacity, True,
-                         lambda: f"session emission, {len(chunks)} chunks")
+                         lambda: f"session emission, {len(chunks)} chunks",
+                         sum(ch.capacity for ch in chunks))
 
     def execute_consts(self, chunks: list[Batch],
                        const_cols: dict[str, list],
@@ -290,9 +309,11 @@ class LocalExecutor:
             if keys and keys[0] in chunks[0].columns else None
         rel = self._driving_relation()
         if _consts_fast_shape(plan, rel, names, key_dtype=key_dt):
-            out, overflow = _run_plan_consts_fast(plan, agg_capacity, chunks,
-                                                  names, vals.tolist())
-            if bool(overflow):
+            with self._metered(sum(ch.capacity for ch in chunks)):
+                out, overflow = _run_plan_consts_fast(
+                    plan, agg_capacity, chunks, names, vals.tolist())
+                overflow = bool(overflow)
+            if overflow:
                 raise OverflowError(
                     f"q{self.spec.number}: const-epoch capacity exceeded "
                     f"(agg={agg_capacity})")
@@ -313,7 +334,8 @@ class LocalExecutor:
                 for i, ch in enumerate(chunks)])
         batch = Batch(cols, torch.cat([ch.valid for ch in chunks]))
         return self._run({rel: batch}, agg_capacity, True,
-                         lambda: f"const-epoch, {len(chunks)} chunks")
+                         lambda: f"const-epoch, {len(chunks)} chunks",
+                         sum(ch.capacity for ch in chunks))
 
     def _driving_relation(self) -> str:
         rels = window_relations(self.spec.relations)

@@ -649,3 +649,97 @@ def test_device_session_resume_on_the_card(dev, tmp_path):
                                  epochs[split:], None, fs,
                                  resume_payloads=payloads, t_base=split)
     assert sorted(rows + _session_rows(res)) == want
+
+
+# -- the SQL frontend and the CLI (slice 8) ----------------------------------
+
+SQL_TEXTS = {
+    4: ("SELECT category, Avg(final) AS avg_final FROM (SELECT Max(price) AS "
+        "final, category FROM auction INNER JOIN bid ON a_id = auction WHERE "
+        "b_date_time BETWEEN a_date_time AND expires GROUP BY a_id, category"
+        ") AS Q GROUP BY category;"),
+    9: ("SELECT auction, bidder, price, b_date_time FROM bid JOIN (SELECT "
+        "a_id AS id, Max(price) AS final FROM auction INNER JOIN bid ON "
+        "a_id = auction WHERE b_date_time BETWEEN a_date_time AND expires "
+        "GROUP BY a_id) AS Q ON auction = id AND price = final;"),
+    13: ("SELECT auction, bidder, price, b_date_time, value FROM bid JOIN "
+         "side_input ON auction = key;"),
+}
+
+
+@pytest.mark.parametrize("q,seconds,eps,gens,reruns", [
+    (4, 2, 20_000, 1, 0), (4, 10, 350, 3, 1), (9, 2, 20_000, 1, 0),
+    (13, 2, 20_000, 1, 0)])
+def test_sql_on_the_card_equals_cpu_and_hand_plan(dev, q, seconds, eps, gens,
+                                                  reruns):
+    """SQL q4, q9 and q13 lowered by ``sql_to_spec``: the card's rows equal
+    the CPU path's and the hand plan's on the card, with the same reruns;
+    SQL q4 and q9 launch K1 (the fused pass kept its Conj), q13 K3."""
+    from flock_tpu_torch.sql.catalog import nexmark_catalog
+    from flock_tpu_torch.sql.lower import sql_to_spec
+
+    spec = sql_to_spec(SQL_TEXTS[q], nexmark_catalog())
+    hand = get_query(q)
+    epochs = generate_epochs(seconds, eps, gens)
+    whole = [(("win", 0, seconds), list(range(seconds)))]
+    runs = []
+    for s, device in ((spec, dev), (spec, "cpu"), (hand, dev)):
+        driver = StreamDriver(s, seconds, device=device)
+        if gens > 1:
+            driver._window_epoch_ranges = lambda occupancy=None: whole
+        before = {"join_agg": join_aggregate.launches,
+                  "gather": gather.launches}
+        res = driver.run(epochs)
+        runs.append((res, driver.executor.fallback_runs,
+                     {k: w.launches - before[k] for k, w in
+                      (("join_agg", join_aggregate), ("gather", gather))}))
+    (gpu, gfb, gl), (cpu, cfb, _), (hnd, hfb, hl) = runs
+    assert gfb == cfb == hfb == reruns
+    assert bool(gl["join_agg"]) == (q in (4, 9)) == bool(hl["join_agg"])
+    if q == 13:
+        assert gl["gather"] > 0
+    for g, c, h in zip(gpu, cpu, hnd):
+        for name, hname in zip(spec.schema.names, hand.schema.names):
+            np.testing.assert_array_equal(g.columns[name], c.columns[name])
+            np.testing.assert_array_equal(g.columns[name], h.columns[hname])
+
+
+@pytest.mark.parametrize("n_build,n_probe", [(8, 10), (10_000, 1_000_000)])
+def test_float_key_join_on_the_card_equals_cpu(dev, n_build, n_probe):
+    """The sorted lookup join (plain PyTorch) on float32 keys: misses,
+    invalid build rows, a duplicate key, a NaN probe and -0.0 against 0.0,
+    row for row the CPU path's."""
+    rng = np.random.default_rng(n_build)
+    bk = rng.permutation(n_build).astype(np.float32) * 0.5
+    bk[:2] = (-0.0, bk[2])          # -0.0 and a duplicate of row 2's key
+    pk = bk[rng.integers(0, n_build, n_probe)] + np.float32(0.25) * (
+        rng.random(n_probe) < 0.2)  # ~20 % miss
+    pk[:3] = (np.nan, 0.0, -0.0)
+    build = {"k": torch.from_numpy(bk),
+             "v": torch.arange(n_build, dtype=torch.int32)}
+    bvalid = torch.from_numpy(rng.random(n_build) < 0.9)
+    probe = {"k": torch.from_numpy(pk),
+             "p": torch.arange(n_probe, dtype=torch.int32)}
+    pvalid = torch.ones(n_probe, dtype=torch.bool)
+    cout, chit = kernels.sorted_lookup_join(build, bvalid, "k", probe, pvalid,
+                                            "k", {"v": "v"})
+    gout, ghit = kernels.sorted_lookup_join(
+        {c: t.to(dev) for c, t in build.items()}, bvalid.to(dev), "k",
+        {c: t.to(dev) for c, t in probe.items()}, pvalid.to(dev), "k",
+        {"v": "v"})
+    assert torch.equal(ghit.cpu(), chit) and not bool(chit[0])
+    for c in cout:
+        assert torch.equal(gout[c].cpu()[chit], cout[c][chit]), c
+
+
+def test_cli_fsql_on_the_card(dev, capsys):
+    """``fsql`` one-shot on the card prints the CPU path's window."""
+    from flock_tpu_torch import cli
+
+    out = []
+    for device in ("cuda", "cpu"):
+        assert cli.main(["fsql", SQL_TEXTS[4], "-s", "2", "-e", "20000",
+                         "--device", device]) == 0
+        out.append([ln for ln in capsys.readouterr().out.splitlines()
+                    if " rows in " not in ln])
+    assert out[0] == out[1] and out[0][0] == "window ('sql',): 5 rows"

@@ -55,10 +55,14 @@ def test_resolve_device(no_cuda):
         flock_tpu_torch.resolve_device("meta")
 
 
-@pytest.mark.parametrize("entry", ["executor", "driver", "batch", "run"])
+@pytest.mark.parametrize("entry", ["executor", "driver", "batch", "run",
+                                   "cli", "sql"])
 def test_no_silent_cpu_fallback(no_cuda, entry):
     """Without CUDA, every entry point called with no device raises."""
+    from flock_tpu_torch import cli
     from flock_tpu_torch.batch import Batch
+    from flock_tpu_torch.sql.catalog import nexmark_catalog
+    from flock_tpu_torch.sql.lower import sql_to_spec
 
     spec = get_query(4)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -68,8 +72,13 @@ def test_no_silent_cpu_fallback(no_cuda, entry):
             StreamDriver(spec, 2)
         elif entry == "batch":
             Batch.from_numpy({"x": np.arange(3, dtype=np.int32)})
-        else:
+        elif entry == "run":
             run_nexmark(4, seconds=1, events_per_second=100)
+        elif entry == "cli":
+            cli.main(["fsql", "SELECT * FROM bid;", "-s", "1", "-e", "100"])
+        else:
+            StreamDriver(sql_to_spec("SELECT * FROM bid;", nexmark_catalog()),
+                         2)
 
 
 def test_fused_kernel_refuses_an_opaque_predicate():

@@ -5,8 +5,9 @@ element-wise windows) and in the G=3 duplicate configuration (one 10 s
 window, tests/test_sqlite_oracle.py's) for q3 and q9; every result also
 against tests/oracle.py.  Then the lookup join's contracts: a clean window
 runs no fan-out, q3's duplicate persons take one rerun, q13's duplicate
-side-input keys end in OverflowError, and the side input is staged once
-(PyTorch port, CPU)."""
+side-input keys end in OverflowError, the side input is staged once, and
+a join on float keys (the sorted lookup) equals the reference's (PyTorch
+port, CPU)."""
 
 import functools
 
@@ -236,26 +237,76 @@ def test_q9_rerun_keeps_the_second_join_slotted(monkeypatch):
     assert calls == [(True, False), (False, True), (True, True)]
 
 
-def _join_plan(build, probe, key):
-    from flock_tpu_torch.plan import Join, Project
+def _float_key_inputs(case):
+    """(build, probe) host columns: tests/test_blocked_kernels.py:91's
+    inputs (misses every 7th probe), or the edges — an invalid build row,
+    a duplicate float key (the first match in the stable order wins), a
+    NaN build key and a NaN probe (never a hit), -0.0 against 0.0 (equal)
+    and an invalid probe row."""
+    if case == "reference_inputs":
+        rng = np.random.default_rng(7)
+        bk = np.arange(50, dtype=np.float32) * 2.5 + 10.0
+        build = {"fk": bk, "payload": np.arange(50, dtype=np.int32) * 3}
+        probe_keys = bk[rng.integers(0, 50, 256)]
+        probe_keys[::7] = -1.0
+        probe = {"fk": probe_keys.astype(np.float32),
+                 "v": rng.integers(0, 100, 256).astype(np.int32)}
+        return build, probe, None
+    build = {"fk": np.array([3.0, 1.0, -0.0, 2.0, 1.0, 5.0, np.nan, 7.5],
+                            np.float32),
+             "payload": np.arange(8, dtype=np.int32) * 10 + 1}
+    build_valid = np.array([True] * 5 + [False, True, True])
+    probe = {"fk": np.array([1.0, 0.0, -0.0, 2.0, 5.0, np.nan, 7.5, 4.0,
+                             3.0, 1.0], np.float32),
+             "v": np.arange(10, dtype=np.int32)}
+    return build, probe, build_valid
 
-    return Project(Join(build=build, probe=probe, build_key=key, probe_key=key,
-                        take=(("v", "v"),)), (("k", "k"),))
 
-
-@pytest.mark.parametrize("kind", ["float_keys"])
-def test_join_lowering_refuses_unported_modes(kind):
-    """A join on float keys (sorted_lookup_join) is not on the port's path
-    yet: it raises by name."""
+@pytest.mark.parametrize("case", ["reference_inputs", "edges"])
+def test_float_key_join_equals_reference(case):
+    """A join on float keys lowers to ``kernels.sorted_lookup_join`` (sort
+    the build side, binary-search the probes): the same validity and the
+    same taken values as flock_tpu's ``compile_plan``, no overflow."""
+    from flock_tpu.batch import Batch as RefBatch
+    from flock_tpu.plan import Join as RefJoin
+    from flock_tpu.plan import Scan as RefScan
+    from flock_tpu.plan import compile_plan as ref_compile_plan
     from flock_tpu_torch.batch import Batch
-    from flock_tpu_torch.plan import Scan, compile_plan
+    from flock_tpu_torch.plan import Join, Scan, compile_plan
 
-    n = 256
-    k = np.arange(n, dtype=np.float32)
-    cols = {"k": torch.from_numpy(k), "v": torch.arange(n, dtype=torch.int32)}
-    tables = {"r": Batch(cols, torch.ones(n, dtype=torch.bool))}
-    with pytest.raises(NotImplementedError, match="float keys"):
-        compile_plan(_join_plan(Scan("r"), Scan("r"), "k"), 1024)(tables)
+    build, probe, build_valid = _float_key_inputs(case)
+    kw = dict(build_key="fk", probe_key="fk", take=(("payload", "payload"),))
+    port_in = {"b": Batch.from_numpy(build, device="cpu"),
+               "p": Batch.from_numpy(probe, device="cpu")}
+    ref_in = {"b": RefBatch.from_numpy(build), "p": RefBatch.from_numpy(probe)}
+    if build_valid is not None:
+        n = len(build_valid)
+        port_in["b"].valid[:n] = torch.from_numpy(build_valid)
+        ref_in["b"] = RefBatch(ref_in["b"].columns,
+                               ref_in["b"].valid.at[:n].set(build_valid))
+    out, ovf, esc = compile_plan(Join(build=Scan("b"), probe=Scan("p"), **kw),
+                                 4096)(port_in)
+    rout, rovf = ref_compile_plan(RefJoin(build=RefScan("b"),
+                                          probe=RefScan("p"), **kw),
+                                  4096)(ref_in)
+    assert not bool(ovf) and not bool(esc) and not bool(rovf)
+    rv = np.asarray(rout.valid)
+    np.testing.assert_array_equal(out.valid.numpy(), rv)
+    assert set(out.columns) == set(rout.columns)
+    for name, col in rout.columns.items():
+        np.testing.assert_array_equal(out.columns[name].numpy()[rv],
+                                      np.asarray(col)[rv], err_msg=name)
+    if case == "edges":
+        # 1.0 → the first of its two build rows; 0.0 and -0.0 → the -0.0
+        # row; 5.0 (invalid build row), NaN and 4.0 miss
+        got = dict(zip(range(10), out.columns["payload"].numpy().tolist()))
+        hit = out.valid.numpy()[:10].tolist()
+        assert hit == [True, True, True, True, False, False, True, False,
+                       True, True]
+        assert [got[i] for i in (0, 1, 2, 3, 6, 8, 9)] == [11, 21, 21, 31,
+                                                           71, 1, 11]
+    else:
+        assert rv.sum() == 256 - len(range(0, 256, 7))
 
 
 I32_MAX = 2**31 - 1
