@@ -88,6 +88,23 @@ and the script exits non-zero:
    count against ``numpy_q4``) and ``nexmark run -q 4 --metrics``; SQL q5
    (hopping) and q7 (tumbling) on the 15 s epochs and YSB's SQL on the
    YSB window, against the hand plans' rows and numpy;
+   The sharded executor (``flock_tpu_torch/parallel``), 8 shards on the
+   card (``dist``, ``multihost``, ``dist windowed``, ``dist ysb``):
+   ``hash32`` on the card bit for bit its CPU result on 4 M keys; the
+   bench epochs of 8 generators (4 s x 4 M events/s, generator p → shard
+   p % 8) through ``DistStreamDriver`` for q4, q9, q13, q6, q3, q0, q1, q2,
+   q10 (element-wise) and q11's device tier, q4 also at 1, 2 and 4 shards;
+   ``MultiHostExecutor`` in a one-process NCCL group of 4 local shards
+   (q4, every epoch, rows equal to the in-process 4-shard run's, row for
+   row); 15 s x 4 M events/s of 8 generators for q5 (hopping 10/5), q7
+   (tumbling 10), q12 and q11; YSB's windows row-sharded round robin.
+   Each run's rows equal the single-card ``StreamDriver``'s on the merged
+   epochs (itself held against numpy), its kernels' launches the counts
+   ``DIST_LAUNCHES`` predicts, exactly; no fallback, one host sync a
+   window; with compute-only (prestaged shard inputs), profiled and
+   feed-inclusive passes, the byte record (``shuffle.TALLY``) per window.
+   The SQL phases take one compute-only and one feed-inclusive pass (no
+   profile);
 4. the duplicate configuration (10 s x 350 events/s, 3 generators, one 10 s
    window) for q4, q9, q6, SQL q4 and q3 on the card against numpy — q4,
    q9, q6 and SQL q4 rerun the window with the duplicate-faithful
@@ -153,6 +170,48 @@ QUERY_KERNELS = {"q4": ("join_agg", "dense_agg"),
                  "q0": (), "q1": (), "q2": (), "q10": (), "q2-rows": (),
                  "q2-sliding": (), "q2-stagger": ()}
 
+# the sharded runs (8 generators → 8 shards on the card): the kernels each
+# shard launches per lowering of a window on each run's main path,
+# predicted from the plan (PERF.md §6, PR 9), as (a clean lowering, a
+# fallback lowering).  Clean: the build's slotting (K2), the fused partial
+# (K1) and the two-phase aggregates' partial and final (K2 each; an int64
+# max takes its final's second K2 by the low words) per shard, the
+# broadcast lookup joins' slotting (K2) and gather (K3); q4's final by
+# (auction, category) has two keys: sort-based, no kernel.  Fallback (a
+# window whose build keys repeat: 8 generators at 4 M events/s repeat
+# auction and person ids): the joins' slotting and every single-key
+# aggregate's partial and final on K2 as in a clean lowering (q6's final
+# by auction: two K2 for the int64 max, its `wmin:` carry scattered on
+# their slots); the fan-out and the fused node's unfused partial plain.
+# q11's device tier launches one K2 per epoch and shard holding rows (its
+# own count)
+DIST_SHARDS, DIST_GENERATORS = 8, 8
+DIST_LAUNCHES = {
+    "q4": ({"join_agg": 1, "dense_agg": 3}, {"dense_agg": 3}),
+    "q9": ({"join_agg": 1, "dense_agg": 3, "gather": 1}, {"dense_agg": 4}),
+    "q13": ({"dense_agg": 1, "gather": 1}, {}),
+    "q6": ({"join_agg": 1, "dense_agg": 5}, {"dense_agg": 5}),
+    "q3": ({"dense_agg": 1, "gather": 1}, {"dense_agg": 1}),
+    "q0": ({}, {}), "q1": ({}, {}), "q2": ({}, {}), "q10": ({}, {}),
+    "ysb": ({"dense_agg": 3, "gather": 1}, {}),
+    "q5": ({"dense_agg": 5, "gather": 1}, {}),
+    "q7": ({"dense_agg": 3, "gather": 1}, {}),
+    "q12": ({"dense_agg": 2}, {})}
+# the runs whose every window reruns on the fallback (their build keys
+# repeat in the 8-generator stream); the same queries row-sharded over the
+# one-generator bench epochs keep their keys unique and stay clean
+DIST_ESCAPES = ("q3", "q4", "q6", "q9")
+DIST_CLEAN = (4, 9, 6)
+for _q, (_clean, _) in DIST_LAUNCHES.items():
+    QUERY_KERNELS[f"dist-{_q}"] = tuple(sorted(_clean))
+for _q in DIST_CLEAN:
+    QUERY_KERNELS[f"dist-rr-q{_q}"] = QUERY_KERNELS[f"dist-q{_q}"]
+QUERY_KERNELS.update({"dist-q11": ("dense_agg",),
+                      "dist-q11-15s": ("dense_agg",),
+                      "multihost-q4": ("join_agg", "dense_agg")})
+for _n in (1, 2, 4):
+    QUERY_KERNELS[f"dist-q4-n{_n}"] = QUERY_KERNELS["dist-q4"]
+
 
 # the SQL runs' kernels: as their hand plans', but SQL q6 is not fused (a
 # Rank sits between its join and its aggregate: the join slots on K2 and
@@ -216,6 +275,11 @@ SQL_YSB = ("SELECT campaign_id, Count(*) AS count FROM ad_event INNER JOIN "
            "campaign ON ad_id = c_ad_id WHERE event_type = 'view' GROUP BY "
            "campaign_id;")
 
+# the SQL runs' timing depth (compute-only passes, feed-inclusive passes,
+# profiled): their rows are held against the hand plans' from the same run,
+# which needs no timing
+SQL_DEPTH = (1, 1, False)
+
 # every phase_query run's window results and numbers, by label: the SQL
 # runs are held against their hand plans' from the same run
 RESULTS: dict = {}
@@ -242,12 +306,25 @@ def counters() -> dict:
             "gather": gather}
 
 
+# a call this slow (ms) is timed over SLOW_REPS runs: its median needs
+# fewer, and fifteen of the plain K2 over 33.5 M rows take 17 s
+SLOW_MS, SLOW_REPS = 50.0, 3
+
+
 def cuda_ms(fn, reps: int = 15, warmup: int = 2) -> float:
     """Median time of ``fn()`` on the device's timeline over ``reps`` runs
-    (CUDA events): device work plus the gaps where the device waits for the
-    host to launch the next operation."""
+    (CUDA events; ``SLOW_REPS`` where a warm-up call took ``SLOW_MS`` or
+    more): device work plus the gaps where the device waits for the host
+    to launch the next operation."""
     for _ in range(warmup):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         fn()
+        end.record()
+        end.synchronize()
+        if start.elapsed_time(end) >= SLOW_MS:
+            reps = min(reps, SLOW_REPS)
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -304,15 +381,22 @@ def profile(fn, sessions: int = 3) -> list[DeviceEvents] | None:
             torch.cuda._sleep(1000)
             fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and "spin_kernel" not in e.key]
+        # the device events by name, from the raw trace: key_averages()
+        # takes seconds per 10,000 recorded operations (a sharded run makes
+        # up to 100,000)
+        events = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA \
+                    and "spin_kernel" not in e.name():
+                acc = events.setdefault(e.name(), [0, 0.0])
+                acc[0] += 1
+                acc[1] += e.duration_ns() / 1e3
         recorded += bool(events)
-        for e in events:
-            most[e.key] = max(most.get(e.key, 0), e.count)
-            acc = seen.setdefault(e.key, [0, 0.0])
-            acc[0] += e.count
-            acc[1] += e.self_device_time_total
+        for key, (count, us) in events.items():
+            most[key] = max(most.get(key, 0), count)
+            acc = seen.setdefault(key, [0, 0.0])
+            acc[0] += count
+            acc[1] += us
     if not most:
         print(f"profiler: no device event in {5 * sessions} sessions; "
               "not measured", flush=True)
@@ -1348,15 +1432,22 @@ def numpy_q12(t: dict) -> dict:
             "start_time": p[first], "end_time": p[last]}
 
 
-def numpy_q11(epochs: list, gap: int) -> dict:
+def numpy_q11(epochs: list, gap: int, in_order: bool = True) -> dict:
     """Independent q11 over the whole stream: the bids, which arrive in
     time order, sorted stably by bidder, so each bidder's bids stay in
     time order; a session starts at a bidder's first bid and wherever the
     second-truncated time jumps by more than ``gap``; per session the bids,
-    the first and the last time."""
+    the first and the last time.  ``in_order=False`` (epochs merged from
+    several generators, each in time order) sorts by bidder and time
+    first."""
     b = np.concatenate([e["bid"]["bidder"] for e in epochs])
     t = np.concatenate([e["bid"]["b_date_time"] for e in epochs])
-    if np.any(np.diff(t) < 0):
+    if not in_order:
+        # several generators' epochs, each in time order: by bidder, then
+        # time
+        order = np.lexsort((t, b))
+        b, t = b[order], t[order]
+    elif np.any(np.diff(t) < 0):
         raise AssertionError("numpy_q11: the stream is not in time order")
     order = np.argsort(b, kind="stable")
     b, t = b[order], t[order]
@@ -1472,7 +1563,12 @@ def _same_rows(got: dict, want: dict, names, what: str) -> None:
 
 
 def _same_row_set(got: dict, want: dict, names, what: str) -> None:
-    """The same rows in any order (SQL sets no order)."""
+    """The same rows in any order (SQL sets no order).  Rows that already
+    agree in the order given need no sort."""
+    if all(np.asarray(got[n]).shape == np.asarray(want[n]).shape
+           and np.array_equal(got[n], want[n]) for n in names):
+        return
+
     def rows(cols):
         arrays = [np.asarray(cols[n]) for n in names]
         order = np.lexsort(arrays[::-1])
@@ -1491,16 +1587,27 @@ def _host(ex, batch) -> dict:
 
 
 @contextlib.contextmanager
-def no_plain_on_card():
+def no_plain_on_card(fused_partial: bool = False):
     """Fail the run if a plain kernel version (the scatter aggregate that
     ``kernels.dense_group_aggregate`` takes for shapes K2 does not) sees a
-    card tensor."""
+    card tensor.  ``fused_partial`` (the sharded runs) lets through one
+    caller: the partial of a fused join-aggregate's unfused branch in a
+    sharded fallback lowering (``_lower_fused_dist``), the reference's own
+    scatter (``allow_blocked=False``)."""
     from flock_tpu_torch.ops import kernels
 
     plain = kernels.dense_agg_plain
 
+    def caller() -> str:
+        f = sys._getframe(2)
+        while f.f_code.co_name in ("dense_group_aggregate",
+                                   "group_aggregate"):
+            f = f.f_back
+        return f.f_code.co_name
+
     def guarded(keys, *args, **kw):
-        if keys.is_cuda:
+        if keys.is_cuda and not (fused_partial
+                                 and caller() == "_lower_fused_dist"):
             raise AssertionError("a card tensor reached dense_agg_plain")
         return plain(keys, *args, **kw)
 
@@ -1684,7 +1791,7 @@ def phase_query(label: str, spec, main, path_of, numpy_fn, seconds: int,
                 eps: int, gen_s: float, card_line: str,
                 staged_once: int | None = None,
                 inputs: dict | None = None, cpu_check: bool = True,
-                compare=None) -> dict:
+                compare=None, depth: tuple = (5, 3, True)) -> dict:
     """One run on the card: ``main()`` is the main path (returns the
     window results; the executor it makes runs the comparisons and the
     timed passes too), ``path_of()`` the way its windows reach the
@@ -1695,7 +1802,11 @@ def phase_query(label: str, spec, main, path_of, numpy_fn, seconds: int,
     the rows are held against the hand plan's instead); ``compare``
     (default ``_same_row_set``) holds rows against the numpy version's.
     The window results and the run's numbers stay in ``RESULTS`` and
-    ``RECORDS`` under ``label``."""
+    ``RECORDS`` under ``label``.  ``depth`` is (compute-only passes,
+    feed-inclusive passes, profiled): the SQL runs take (1, 1, False),
+    their idle share then not measured; the ATen record's pass, which
+    counts the kernel launches, always runs."""
+    n_compute, n_feed, profiled = depth
     compare = compare or _same_row_set
     from flock_tpu_torch.runtime.executor import LocalExecutor
 
@@ -1760,21 +1871,21 @@ def phase_query(label: str, spec, main, path_of, numpy_fn, seconds: int,
             path.run(ex, staged, i, False)
 
     best = float("inf")
-    for _ in range(5):
+    for _ in range(n_compute):
         t0 = time.perf_counter()
         compute()
         torch.cuda.synchronize()
         best = min(best, time.perf_counter() - t0)
     # where the device time goes in one compute-only pass; the idle share
     # sets the device's busy time against the unprofiled compute time
-    events = profile(compute)
+    events = profile(compute) if profiled else None
     wrappers = counters()
     before = {k: w.launches for k, w in wrappers.items()}
     aten = dispatched_ops(compute)
     extra = {"aten_ops": len(aten), "aten_cat": aten.count("cat"),
              "kernel_launches": sum(w.launches - before[k]
                                     for k, w in wrappers.items())}
-    if path.single is not None:
+    if path.single is not None and profiled:
         # a one-epoch window takes its epoch's batches as they stand: the
         # same operations as execute_batches on them
         one = profile(
@@ -1792,7 +1903,7 @@ def phase_query(label: str, spec, main, path_of, numpy_fn, seconds: int,
         "windows": len(path.windows), "compute_ms": best * 1e3,
         **profile_summary(events, best * 1e3), **extra}), flush=True)
     best_incl = float("inf")
-    for _ in range(3):
+    for _ in range(n_feed):
         t0 = time.perf_counter()
         path.feed(ex)
         torch.cuda.synchronize()
@@ -1957,7 +2068,8 @@ def phase_sql_ysb(card_line: str, cfg, windows, gen_s: float) -> dict:
     launches = phase_query("sql-ysb", spec, main,
                            lambda: window_path(windows, lambda t: caps),
                            numpy_ysb, cfg.seconds, cfg.events_per_second,
-                           gen_s, card_line, cpu_check=False)
+                           gen_s, card_line, cpu_check=False,
+                           depth=SQL_DEPTH)
     names = ["campaign_id", "count"]
     same_as_hand("sql-ysb", RESULTS.pop("sql-ysb"), RESULTS.pop("ysb"),
                  names, names)
@@ -2403,7 +2515,8 @@ def phase_sql(epochs: list, gen_s: float, card_line: str,
                     device="cuda").run(epochs)
         launches[label] = phase_stream(
             label, spec, epochs, BENCH_SECONDS, BENCH_EPS, gen_s, card_line,
-            numpy_fn=numpy_fn, cpu_check=False, compare=compare)
+            numpy_fn=numpy_fn, cpu_check=False, compare=compare,
+            depth=SQL_DEPTH)
         if hand is not None:
             same_as_hand(label, RESULTS[label], hand, spec.schema.names,
                          names, compare)
@@ -2530,11 +2643,419 @@ def phase_sql_windows(epochs: list, gen_s: float, card_line: str,
         spec = sql_spec(q, win)
         launches[label] = phase_stream(
             label, spec, epochs, WIN_SECONDS, BENCH_EPS, gen_s, card_line,
-            numpy_fn=lambda t, q=q: numpy_query(q, t), cpu_check=False)
+            numpy_fn=lambda t, q=q: numpy_query(q, t), cpu_check=False,
+            depth=SQL_DEPTH)
         same_as_hand(label, RESULTS.pop(label), RESULTS[f"q{q}"],
                      spec.schema.names, get_query(q).schema.names)
         print(f"{label}: rows equal the hand plan's and the numpy "
               "version's", flush=True)
+
+
+# -- the sharded executor (8 shards on the card) --------------------------------
+
+
+def dist_parts(seconds: int) -> tuple:
+    """(per-generator parts, the same merged per epoch, generation
+    seconds): ``generate_epoch_parts(seconds, BENCH_EPS, 8)``."""
+    from flock_tpu_torch.runtime.stream import generate_epoch_parts
+    from flock_tpu_torch.runtime.tables import concat_relations
+
+    t0 = time.perf_counter()
+    parts = generate_epoch_parts(seconds, BENCH_EPS, DIST_GENERATORS)
+    gen_s = time.perf_counter() - t0
+    merged = [concat_relations(p, ("person", "auction", "bid"))
+              for p in parts]
+    return parts, merged, gen_s
+
+
+class RowSharded:
+    """Host windows row-sharded round robin over the shards (YSB, as
+    tests/test_distributed.py shards it), with ``DistStreamDriver``'s
+    ``run``/``prestage``; side tables (YSB's campaigns) on shard 0."""
+
+    def __init__(self, spec, windows: list, n: int, side: tuple = ()):
+        from flock_tpu_torch.parallel.executor import DistributedExecutor
+
+        self.spec = spec
+        self.executor = DistributedExecutor(spec, n, device="cuda")
+        self.session_stats = None
+        self.tables = [(tag, [{
+            rel: (cols if rel in side and i == 0 else
+                  {c: v[:0] for c, v in cols.items()} if rel in side else
+                  {c: v[i::n] for c, v in cols.items()})
+            for rel, cols in t.items()} for i in range(n)])
+            for tag, t in windows]
+
+    def prestage(self, _parts=None) -> list:
+        ex = self.executor
+        return [ex.stage(t, ex.capacities(t)) for _, t in self.tables]
+
+    def run(self, _parts=None, prestaged=None) -> list:
+        from flock_tpu_torch.runtime.executor import materialize_columns
+        from flock_tpu_torch.runtime.stream import WindowResult
+
+        return [WindowResult(tag, materialize_columns(
+                    self.spec, self.executor.execute_window(
+                        t, None, None if prestaged is None else prestaged[i])))
+                for i, (tag, t) in enumerate(self.tables)]
+
+
+def expected_launches(per_lowering: tuple, ex, n: int, names) -> dict:
+    """The launches ``DIST_LAUNCHES``' (clean, fallback) counts per shard
+    give for the executor's lowerings: every host sync reads one lowering,
+    ``fallback_runs`` of them fallback ones."""
+    clean, fallback = per_lowering
+    n_clean = ex.host_syncs - ex.fallback_runs
+    return {k: n * (n_clean * clean.get(k, 0)
+                    + ex.fallback_runs * fallback.get(k, 0)) for k in names}
+
+
+def phase_dist(label: str, make, parts, check, n: int,
+               seconds: int, eps: int, gen_s: float, card_line: str,
+               per_lowering: tuple | None, full: bool = True,
+               escapes: bool = False) -> tuple:
+    """One sharded run on the card: ``make()`` gives a fresh
+    ``DistStreamDriver`` (or ``RowSharded``) whose ``run(parts)`` is the
+    main path, with every launch counter at zero before it and the byte
+    record on.  Each kernel's launches must equal what ``per_lowering``
+    gives for the run's lowerings (``expected_launches``; the device
+    session tier: one K2 per shard step with rows, its own count), exactly;
+    no plain kernel version on a card tensor but a fused node's unfused
+    partial (``no_plain_on_card(fused_partial=True)``);
+    one host sync per window and no fallback, or with ``escapes`` every
+    window rerun on the fallback; ``check(results)`` holds the rows
+    (``same_windows``, ``same_sessions``).  Then 3 compute-only passes
+    from ``prestage(parts)``, and
+    with ``full`` one profiled pass (device events and the exact ATen
+    record, which counts the launches too) and one feed-inclusive pass.
+    Returns (launches, results)."""
+    from flock_tpu_torch.parallel import shuffle
+
+    wrappers = counters()
+    for w in wrappers.values():
+        w.launches = 0
+    tally = []
+    driver = make()
+    with no_plain_on_card(fused_partial=True):
+        shuffle.TALLY = tally
+        try:
+            t0 = time.perf_counter()
+            results = driver.run(parts)
+            torch.cuda.synchronize()
+            first_run_s = time.perf_counter() - t0
+        finally:
+            shuffle.TALLY = None
+    launches = {k: w.launches for k, w in wrappers.items()}
+    ex, stats = driver.executor, driver.session_stats
+    windows, syncs = len(results), ex.host_syncs
+    if per_lowering is None:      # the device session tier
+        expected = {k: 0 for k in launches}
+        expected["dense_agg"] = stats["shard_steps"]
+    else:
+        expected = expected_launches(per_lowering, ex, n, launches)
+    if launches != expected:
+        raise AssertionError(f"{label}: launches {launches}, predicted "
+                             f"{expected}")
+    missing = [k for k in QUERY_KERNELS[label] if not launches[k]]
+    if missing:
+        raise AssertionError(f"{label} did not run through {missing}")
+    fallback_runs = ex.fallback_runs
+    if escapes and fallback_runs < windows:
+        raise AssertionError(f"{label}: {fallback_runs} fallback runs for "
+                             f"{windows} windows whose keys repeat")
+    if not escapes and (fallback_runs or (stats is None
+                                          and syncs != windows)):
+        raise AssertionError(f"{label}: {fallback_runs} fallback runs, "
+                             f"{syncs} host syncs for {windows} windows")
+    names = ex.spec.schema.names
+    check(results)
+
+    pre = driver.prestage(parts)
+    torch.cuda.synchronize()
+
+    def compute():
+        driver.run(parts, prestaged=pre)
+
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        compute()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    rec = {"query": label, "shards": n, "seconds": seconds, "eps": eps,
+           "windows": windows,
+           "rows_out": sum(len(r.columns[names[0]]) for r in results),
+           "gen_s": gen_s, "first_run_s": first_run_s, "compute_s": best,
+           "launches": launches, "fallback_runs": fallback_runs,
+           "host_syncs_per_window": syncs / max(windows, 1),
+           "tally_bytes_per_window": sum(
+               r["bytes_per_shard"] for r in tally) / max(windows, 1),
+           "collectives_per_window": len(tally) / max(windows, 1),
+           "session_stats": stats, "card": card_line}
+    if full:
+        aten, calls = [], []
+        before = {k: w.launches for k, w in wrappers.items()}
+
+        def recorded():
+            calls.append(1)
+            aten[:] = dispatched_ops(compute)
+
+        events = profile(recorded, sessions=1)
+        rec.update(profile_summary(events, best * 1e3))
+        rec["aten_ops"] = len(aten)
+        rec["kernel_launches_per_pass"] = sum(
+            w.launches - before[k] for k, w in wrappers.items()) / len(calls)
+        del pre
+        t0 = time.perf_counter()
+        make().run(parts)
+        torch.cuda.synchronize()
+        rec["feed_incl_s"] = time.perf_counter() - t0
+    print(f"{label}: " + json.dumps(rec, default=str), flush=True)
+    RECORDS[label] = rec
+    return launches, results
+
+
+def _window_rows(results) -> list:
+    return [(r.tag, r.columns) for r in results]
+
+
+def same_windows(label: str, want: list):
+    """A check of a sharded run: its windows' tags are ``want``'s, and each
+    window's rows the same as ``want``'s (tag, host columns), as row
+    sets."""
+    def check(results):
+        if [r.tag for r in results] != [tag for tag, _ in want]:
+            raise AssertionError(f"{label}: window tags differ")
+        for r, (tag, cols) in zip(results, want):
+            names = list(r.columns)
+            _same_row_set(r.columns, cols, names, f"{label} {tag}")
+    return check
+
+
+def same_sessions(label: str, want: dict, single: list):
+    """A check of a sharded q11 run: the union of its emissions equals
+    numpy's sessions and the single-card driver's emissions."""
+    def check(results):
+        got = _all_rows(results)
+        _same_row_set(got, want, Q11_NAMES, f"{label}: sharded vs numpy")
+        _same_row_set(got, _all_rows(single), Q11_NAMES,
+                      f"{label}: sharded vs single card")
+    return check
+
+
+def _with_numpy(label: str, single: list, windows: list, numpy_fn,
+                names) -> list:
+    """The single-card driver's windows, each first held against the numpy
+    version of its host tables (the seconds that takes printed)."""
+    t0 = time.perf_counter()
+    for (tag, cols), (wtag, tables) in zip(single, windows):
+        if tag != wtag:
+            raise AssertionError(f"{label}: window tags differ")
+        _same_row_set(cols, numpy_fn(tables), names,
+                      f"{label} {tag}: single card vs numpy")
+    print(f"{label} numpy check: " + json.dumps(
+        {"seconds": time.perf_counter() - t0}), flush=True)
+    return single
+
+
+def phase_dist_bench(parts, merged, gen_s: float, card_line: str,
+                     launches: dict) -> dict:
+    """q4, q9, q13, q6, q3, q0, q1, q2 and q10 (element-wise) and q11's
+    device tier through ``DistStreamDriver`` over 8 shards on the bench
+    epochs of 8 generators, each against the single-card ``StreamDriver``
+    on the merged epochs from this run (itself against numpy); q4 also at
+    1, 2 and 4 shards.  Returns q4's results by shard count."""
+    from flock_tpu_torch.parallel.stream import DistStreamDriver
+    from flock_tpu_torch.queries.nexmark import SESSION_GAP_S, get_query
+    from flock_tpu_torch.runtime.stream import StreamDriver
+
+    q4 = {}
+    for q in (4, 9, 13, 6, 3, 0, 1, 2, 10):
+        spec = get_query(q)
+        single_driver = StreamDriver(spec, BENCH_SECONDS, device="cuda")
+        single = _with_numpy(
+            f"dist-q{q}", _window_rows(single_driver.run(merged)),
+            single_driver.windows(merged), lambda t, q=q: numpy_query(q, t),
+            spec.schema.names)
+        launches[f"dist-q{q}"], res = phase_dist(
+            f"dist-q{q}", lambda spec=spec: DistStreamDriver(
+                spec, BENCH_SECONDS, DIST_SHARDS, device="cuda"),
+            parts, same_windows(f"dist-q{q}", single), DIST_SHARDS,
+            BENCH_SECONDS, BENCH_EPS, gen_s, card_line,
+            DIST_LAUNCHES[f"q{q}"], escapes=f"q{q}" in DIST_ESCAPES)
+        if q == 4:
+            q4[DIST_SHARDS] = res
+            for n in (1, 2, 4):
+                launches[f"dist-q4-n{n}"], q4[n] = phase_dist(
+                    f"dist-q4-n{n}", lambda n=n: DistStreamDriver(
+                        spec, BENCH_SECONDS, n, device="cuda"),
+                    parts, same_windows(f"dist-q4-n{n}", _window_rows(res)),
+                    n, BENCH_SECONDS, BENCH_EPS, gen_s, card_line,
+                    DIST_LAUNCHES["q4"], full=False, escapes=True)
+            print("dist-q4: rows equal at 1, 2, 4 and 8 shards", flush=True)
+    spec = get_query(11)
+    want = numpy_q11(merged, SESSION_GAP_S, in_order=False)
+    single = StreamDriver(spec, BENCH_SECONDS, device="cuda").run(merged)
+    _same_row_set(_all_rows(single), want, Q11_NAMES,
+                  "dist-q11: single card vs numpy")
+    launches["dist-q11"], _ = phase_dist(
+        "dist-q11", lambda: DistStreamDriver(spec, BENCH_SECONDS,
+                                             DIST_SHARDS, device="cuda"),
+        parts, same_sessions("dist-q11", want, single), DIST_SHARDS,
+        BENCH_SECONDS, BENCH_EPS, gen_s, card_line, None)
+    return q4
+
+
+def phase_dist_clean(epochs: list, gen_s: float, card_line: str,
+                     launches: dict) -> None:
+    """q4, q9 and q6 over 8 shards with unique build keys: the
+    one-generator bench epochs, every relation row-sharded round robin
+    (the broadcast join gathers the whole build), so every window stays on
+    the clean sharded lowering (K1's partial, the int64 finals on K2, q6's
+    carry read as a max).  Each window's rows equal the single-card
+    driver's from this run (``RESULTS``, held against numpy there)."""
+    from flock_tpu_torch.queries.nexmark import get_query
+    from flock_tpu_torch.runtime.stream import StreamDriver
+
+    for q in DIST_CLEAN:
+        spec = get_query(q)
+        label = f"dist-rr-q{q}"
+        windows = StreamDriver(spec, BENCH_SECONDS, device="cpu").windows(
+            epochs)
+        launches[label], _ = phase_dist(
+            label, lambda spec=spec, windows=windows: RowSharded(
+                spec, windows, DIST_SHARDS),
+            None, same_windows(label, _window_rows(RESULTS[f"q{q}"])),
+            DIST_SHARDS, BENCH_SECONDS, BENCH_EPS, gen_s, card_line,
+            DIST_LAUNCHES[f"q{q}"])
+
+
+def phase_multihost(parts, q4_results: list, card_line: str,
+                    launches: dict) -> None:
+    """``MultiHostExecutor`` in a one-process NCCL group holding 4 local
+    shards on the card: q4 on every bench epoch (generator p → shard
+    p % 4), each window's rows equal to the in-process 4-shard run's, row
+    for row; K1 and K2 launched as predicted; the group torn down after."""
+    import socket
+
+    import torch.distributed as dist
+
+    from flock_tpu_torch.parallel.mesh import make_multihost_mesh
+    from flock_tpu_torch.parallel.multihost import MultiHostExecutor
+    from flock_tpu_torch.queries.nexmark import get_query
+    from flock_tpu_torch.runtime.executor import materialize_columns
+    from flock_tpu_torch.runtime.tables import concat_relations
+
+    wrappers = counters()
+    for w in wrappers.values():
+        w.launches = 0
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    spec = get_query(4)
+    try:
+        ex = MultiHostExecutor(spec, mesh=make_multihost_mesh(4))
+        t0 = time.perf_counter()
+        with no_plain_on_card(fused_partial=True):
+            for epoch, want in zip(parts, q4_results):
+                tables = [dict(concat_relations(
+                    [p for j, p in enumerate(epoch) if j % 4 == i],
+                    ("auction", "bid"))) for i in range(4)]
+                got = materialize_columns(spec, ex.execute_window(tables))
+                _same_rows(got, want.columns, spec.schema.names,
+                           f"multihost-q4 {want.tag}: vs the 4-shard run")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    launches["multihost-q4"] = {k: w.launches for k, w in wrappers.items()}
+    expected = expected_launches(DIST_LAUNCHES["q4"], ex._inner, 4, wrappers)
+    if launches["multihost-q4"] != expected:
+        raise AssertionError(f"multihost-q4: launches "
+                             f"{launches['multihost-q4']}, predicted "
+                             f"{expected}")
+    print("multihost-q4: " + json.dumps({
+        "processes": 1, "local_shards": 4, "backend": "nccl",
+        "windows": len(parts), "run_s": run_s,
+        "fallback_runs": ex._inner.fallback_runs,
+        "host_syncs": ex._inner.host_syncs,
+        "launches": launches["multihost-q4"], "card": card_line}),
+        flush=True)
+
+
+def check_hash32() -> None:
+    """``hash32`` on the card bit for bit its CPU result on 4 M keys:
+    int32 keys over the whole range (negative ones included) and int64
+    keys beyond 2^31, alone and combined."""
+    from flock_tpu_torch.parallel.shuffle import hash32
+
+    rng = np.random.default_rng(SEED)
+    n = 4_000_000
+    k32 = torch.from_numpy(rng.integers(-2**31, 2**31, n).astype(np.int32))
+    k64 = torch.from_numpy(rng.integers(-2**62, 2**62, n))
+    k64[:4] = torch.tensor([2**31, -2**31 - 1, 2**63 - 1, -2**63])
+    for what, keys in (("int32", [k32]), ("int64", [k64]),
+                       ("int32+int64", [k32, k64])):
+        got = hash32([k.cuda() for k in keys]).cpu()
+        if not torch.equal(got, hash32(keys)):
+            raise AssertionError(f"hash32 {what}: card differs from CPU")
+    print(f"hash32: card = CPU on {n} int32, int64 and combined keys",
+          flush=True)
+
+
+def phase_dist_windowed(card_line: str, launches: dict) -> None:
+    """15 s × 4 M events/s of 8 generators through ``DistStreamDriver``
+    over 8 shards: q5 hopping 10/5, q7 tumbling 10, q12 over
+    processing-time windows and q11's device tier, each against the
+    single-card driver on the merged epochs (itself against numpy)."""
+    from flock_tpu_torch.parallel.stream import DistStreamDriver
+    from flock_tpu_torch.queries.nexmark import SESSION_GAP_S, get_query
+    from flock_tpu_torch.runtime.stream import StreamDriver
+
+    parts, merged, gen_s = dist_parts(WIN_SECONDS)
+    for q in (5, 7, 12):
+        spec = get_query(q)
+        single_driver = StreamDriver(spec, WIN_SECONDS, device="cuda")
+        windows = consts_path(spec, merged, WIN_SECONDS).windows \
+            if q == 12 else single_driver.windows(merged)
+        single = _with_numpy(
+            f"dist-q{q}", _window_rows(single_driver.run(merged)), windows,
+            lambda t, q=q: numpy_query(q, t), spec.schema.names)
+        launches[f"dist-q{q}"], _ = phase_dist(
+            f"dist-q{q}", lambda spec=spec: DistStreamDriver(
+                spec, WIN_SECONDS, DIST_SHARDS, device="cuda"),
+            parts, same_windows(f"dist-q{q}", single), DIST_SHARDS,
+            WIN_SECONDS, BENCH_EPS, gen_s, card_line,
+            DIST_LAUNCHES[f"q{q}"])
+    spec = get_query(11)
+    want = numpy_q11(merged, SESSION_GAP_S, in_order=False)
+    single = StreamDriver(spec, WIN_SECONDS, device="cuda").run(merged)
+    _same_row_set(_all_rows(single), want, Q11_NAMES,
+                  "dist-q11-15s: single card vs numpy")
+    launches["dist-q11-15s"], _ = phase_dist(
+        "dist-q11-15s", lambda: DistStreamDriver(spec, WIN_SECONDS,
+                                                 DIST_SHARDS, device="cuda"),
+        parts, same_sessions("dist-q11-15s", want, single), DIST_SHARDS,
+        WIN_SECONDS, BENCH_EPS, gen_s, card_line, None)
+
+
+def phase_dist_ysb(card_line: str, cfg, windows, gen_s: float,
+                   launches: dict) -> None:
+    """YSB's windows row-sharded round robin over 8 shards (the campaigns
+    on shard 0), each against ``run_ysb``'s rows from this run and
+    numpy."""
+    from flock_tpu_torch.queries.ysb import ysb_query
+
+    spec = ysb_query()
+    single = _with_numpy("dist-ysb", _window_rows(RESULTS["ysb"]), windows,
+                         numpy_ysb, spec.schema.names)
+    launches["dist-ysb"], _ = phase_dist(
+        "dist-ysb", lambda: RowSharded(spec, windows, DIST_SHARDS,
+                                       side=("campaign",)),
+        None, same_windows("dist-ysb", single), DIST_SHARDS, cfg.seconds,
+        cfg.events_per_second, gen_s, card_line, DIST_LAUNCHES["ysb"])
 
 
 def kernels_line(cases: list[dict], launches: dict[str, dict]) -> dict:
@@ -2614,6 +3135,8 @@ def main() -> int:
         phase_sql(epochs, gen_s, card_line, launches)
         float_key_join(epochs, card_line)
         phase_cli(epochs, launches)
+    with phase_seconds("dist clean"):
+        phase_dist_clean(epochs, gen_s, card_line, launches)
     RESULTS.clear()
     del epochs
     with phase_seconds("q3"):
@@ -2623,6 +3146,15 @@ def main() -> int:
         launches["q3"] = phase_stream("q3", get_query(3), epochs,
                                       BENCH_SECONDS, Q3_EPS, gen_s, card_line)
         del epochs
+    with phase_seconds("dist"):
+        check_hash32()
+        parts, merged, gen_s = dist_parts(BENCH_SECONDS)
+        q4_by_shards = phase_dist_bench(parts, merged, gen_s, card_line,
+                                        launches)
+        del merged
+    with phase_seconds("multihost"):
+        phase_multihost(parts, q4_by_shards[4], card_line, launches)
+        del parts, q4_by_shards
     with phase_seconds("windowed epochs"):
         t0 = time.perf_counter()
         epochs = generate_epochs(WIN_SECONDS, BENCH_EPS, 1)
@@ -2655,9 +3187,13 @@ def main() -> int:
     with phase_seconds("q11 resume"):
         phase_q11_resume(epochs, WIN_SECONDS, card_line, device_results)
     del epochs, want, device_results
+    with phase_seconds("dist windowed"):
+        phase_dist_windowed(card_line, launches)
     with phase_seconds("ysb"):
         ysb = ysb_windows()
         launches["ysb"] = phase_ysb(card_line, inputs, *ysb)
+    with phase_seconds("dist ysb"):
+        phase_dist_ysb(card_line, *ysb, launches)
     with phase_seconds("sql ysb"):
         launches["sql-ysb"] = phase_sql_ysb(card_line, *ysb)
         del ysb

@@ -1,23 +1,29 @@
-"""Command-line driver — the port of ``flock_tpu/cli.py``'s single-device
-subcommands (the flock-cli analogue, flock-cli/src/{main,nexmark,ysb}.rs):
+"""Command-line driver — the port of ``flock_tpu/cli.py`` (the flock-cli
+analogue, flock-cli/src/{main,nexmark,ysb}.rs):
 
   nexmark run  -q N [-s SECONDS] [-e EVENTS_PER_SEC] [-g GENERATORS]
+               [--distributed] [--shards N] [--multihost [--coordinator
+               HOST:PORT --num-processes P --process-id I]]
                [--show N] [--metrics] [--trace] [--sink KIND] [--device D]
   ysb run      [-s SECONDS] [-e EVENTS_PER_SEC] [-g GENERATORS] [--show N]
                [--device D]
+  explain      [-q N | --sql SQL] [--dataset nexmark|ysb]
   fsql         [SQL] [--dataset nexmark|ysb] [-s] [-e] [-g] [--show N]
                [--device D]
 
     python -m flock_tpu_torch.cli nexmark run -q 4 -s 4 -e 4000000
+    python -m flock_tpu_torch.cli nexmark run -q 4 -g 8 --distributed
 
 Outputs per-window row counts and (with --show) decoded result rows, in
 the reference's format.  Everything runs on the card unless ``--device
 cpu`` is given (where the reference honours ``JAX_PLATFORMS``); without a
-card and without it, every subcommand raises.  The reference's
-``--distributed``/``--multihost`` flags and its ``explain``, ``bench``,
-``ingest`` and ``produce`` subcommands come with the modules they need
-(the sharded executor, the planner, ingestion), so argparse refuses them
-until then.
+card and without it, every subcommand that runs a query raises.
+``--distributed`` runs the sharded driver over ``--shards`` shards (on one
+card all of them on it); ``--multihost`` runs one window over the shards
+of every process (``--shards`` in all, split evenly), each process
+generating only its own partitions.  The reference's ``bench``, ``ingest``
+and ``produce`` subcommands come with the modules they need (ingestion,
+the bench), so argparse refuses them until then.
 """
 
 from __future__ import annotations
@@ -56,21 +62,127 @@ def cmd_nexmark(args) -> int:
     name = f"nexmark_q{args.query}"
     if args.trace:
         print(f"profiler trace → {trace_dir(name)}")
+    if args.multihost:
+        with device_trace(name, enabled=args.trace):
+            rc = _run_nexmark_multihost(args, spec, sink)
+        print(f"elapsed: {time.perf_counter() - t0:.2f}s")
+        if args.metrics:
+            print(METRICS.report())
+        return rc
     with device_trace(name, enabled=args.trace):
-        results = run_nexmark(args.query, args.seconds, args.eps,
-                              args.generators, device=args.device)
+        if args.distributed:
+            from flock_tpu_torch.parallel.stream import DistStreamDriver
+            from flock_tpu_torch.runtime.stream import generate_epoch_parts
+
+            parts = generate_epoch_parts(args.seconds, args.eps,
+                                         args.generators)
+            results = DistStreamDriver(spec, args.seconds, args.shards,
+                                       device=args.device).run(parts)
+        else:
+            results = run_nexmark(args.query, args.seconds, args.eps,
+                                  args.generators, device=args.device)
     total = 0
     for r in results:
         total += len(next(iter(r.columns.values()))) if r.columns else 0
         _print_window(r.tag, r.columns, spec.schema, args.show)
         if sink:
             sink.write(r.tag, r.columns, spec.schema)
-    print(f"q{args.query}: {len(results)} windows, {total} output rows")
-    if sink:
-        print(f"sink[{args.sink}]: {sink.read()}")
+    if args.distributed:
+        print(f"q{args.query} distributed×{args.shards}: {len(results)} "
+              f"windows, {total} output rows")
+    else:
+        print(f"q{args.query}: {len(results)} windows, {total} output rows")
+        if sink:
+            print(f"sink[{args.sink}]: {sink.read()}")
     print(f"elapsed: {time.perf_counter() - t0:.2f}s")
     if args.metrics:
         print(METRICS.report())
+    return 0
+
+
+def _run_nexmark_multihost(args, spec, sink) -> int:
+    """One window over every shard of every process; each process
+    generates ONLY the generator partitions its shards own (the
+    reference's one-command-per-host deployment).  The whole run executes
+    as one window; process 0 prints it.  The process group is made here
+    (gloo on the CPU, NCCL on the card) and torn down after."""
+    import torch.distributed as dist
+
+    from flock_tpu_torch.datagen.native_gen import nexmark_generate_partition
+    from flock_tpu_torch.datagen.nexmark import NexmarkConfig
+    from flock_tpu_torch.parallel.mesh import make_multihost_mesh
+    from flock_tpu_torch.parallel.multihost import (MultiHostExecutor,
+                                                    init_distributed,
+                                                    local_partition_ids)
+    from flock_tpu_torch.runtime.executor import materialize_columns
+    from flock_tpu_torch.runtime.tables import (concat_relations,
+                                                default_side_input,
+                                                epoch_to_relations,
+                                                window_relations)
+
+    if spec.window[0] in ("session", "global"):
+        print("error: --multihost supports range/elementwise windows "
+              "(session/processing-time bookkeeping is single-host for now)",
+              file=sys.stderr)
+        return 2
+    rank, world = init_distributed(
+        args.coordinator, args.num_processes, args.process_id,
+        backend="gloo" if args.device.type == "cpu" else "nccl")
+    try:
+        mesh = make_multihost_mesh(max(args.shards // world, 1), args.device)
+        n_shards = mesh.n_shards
+        gens = max(args.generators, n_shards)
+        cfg = NexmarkConfig(events_per_second=args.eps,
+                            num_event_generators=gens)
+        rels = window_relations(spec.relations)
+        ex = MultiHostExecutor(spec, mesh=mesh)
+        per_shard = {s: [] for s in ex.local_shards}
+        for p in local_partition_ids(gens, mesh):
+            for e in nexmark_generate_partition(cfg, args.seconds, p):
+                if e.epoch < args.seconds:
+                    per_shard[p % n_shards].append(epoch_to_relations(e))
+        local_tables = []
+        for s in ex.local_shards:
+            st = dict(concat_relations(per_shard[s], rels))
+            if "side_input" in spec.relations:
+                si = default_side_input()
+                st["side_input"] = si if s == 0 else \
+                    {k: v[:0] for k, v in si.items()}
+            local_tables.append(st)
+        cols = materialize_columns(spec, ex.execute_window(local_tables))
+    finally:
+        dist.destroy_process_group()
+    n = len(next(iter(cols.values()))) if cols else 0
+    if rank == 0:
+        tag = ("multihost", 0, args.seconds)
+        _print_window(tag, cols, spec.schema, args.show)
+        if sink:
+            sink.write(tag, cols, spec.schema)
+        print(f"q{args.query} multihost: {world} process(es) × "
+              f"{n_shards} shards, {n} output rows")
+    return 0
+
+
+def cmd_explain(args) -> int:
+    """Show a query's stage DAG (the reference's EXPLAIN)."""
+    from flock_tpu_torch.planner import plan_query_stages
+
+    if args.sql:
+        from flock_tpu_torch.sql.catalog import nexmark_catalog, ysb_catalog
+        from flock_tpu_torch.sql.lower import sql_to_spec
+
+        cat = ysb_catalog() if args.dataset == "ysb" else nexmark_catalog()
+        spec = sql_to_spec(args.sql, cat)
+        print(f"-- SQL plan ({args.dataset})")
+    else:
+        from flock_tpu_torch.queries.nexmark import QUERIES, get_query
+
+        if args.query not in QUERIES:
+            print(f"error: unknown query q{args.query}", file=sys.stderr)
+            return 2
+        spec = get_query(args.query)
+        print(f"-- q{args.query} (window={spec.window})")
+    print(plan_query_stages(spec.plan).explain())
     return 0
 
 
@@ -154,6 +266,8 @@ def cmd_fsql(args) -> int:
 
 
 def main(argv=None) -> int:
+    from flock_tpu_torch.config import CONFIG
+
     ap = argparse.ArgumentParser(prog="flock-tpu-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     dev = argparse.ArgumentParser(add_help=False)
@@ -168,6 +282,17 @@ def main(argv=None) -> int:
     nr.add_argument("-s", "--seconds", type=int, default=4)
     nr.add_argument("-e", "--eps", type=int, default=10_000)
     nr.add_argument("-g", "--generators", type=int, default=1)
+    nr.add_argument("--distributed", action="store_true")
+    nr.add_argument("--multihost", action="store_true",
+                    help="run ONE window over every process's shards (the "
+                    "same command in every process; --coordinator or "
+                    "torch's MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK wire "
+                    "the processes together)")
+    nr.add_argument("--coordinator", default=None,
+                    help="host:port of process 0")
+    nr.add_argument("--num-processes", type=int, default=None)
+    nr.add_argument("--process-id", type=int, default=None)
+    nr.add_argument("--shards", type=int, default=CONFIG.target_partitions)
     nr.add_argument("--show", type=int, default=0)
     nr.add_argument("--metrics", action="store_true",
                     help="print the per-query metrics registry after the run")
@@ -187,6 +312,12 @@ def main(argv=None) -> int:
     yr.add_argument("--show", type=int, default=0)
     yr.set_defaults(fn=cmd_ysb)
 
+    ex = sub.add_parser("explain")
+    ex.add_argument("-q", "--query", type=int, default=4)
+    ex.add_argument("--sql", default=None)
+    ex.add_argument("--dataset", choices=["nexmark", "ysb"], default="nexmark")
+    ex.set_defaults(fn=cmd_explain, device="cpu")
+
     fq = sub.add_parser("fsql", parents=[dev])
     fq.add_argument("query", nargs="?", default=None,
                     help="one-shot SQL; omit for a REPL")
@@ -199,7 +330,7 @@ def main(argv=None) -> int:
 
     args = ap.parse_args(argv)
     # before any data is made (and outside fsql's REPL error handler): no
-    # card and no --device cpu raises
+    # card and no --device cpu raises (explain runs no query: plain Python)
     args.device = resolve_device(args.device)
     return args.fn(args)
 

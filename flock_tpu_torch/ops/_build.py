@@ -16,6 +16,7 @@ kernels compile inside ``jax.jit``.)
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import os
@@ -105,3 +106,15 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
         lib.flock_error_string.argtypes = [ctypes.c_int]
         msg = lib.flock_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA launch failed ({rc}: {msg})")
+
+
+def on_device(dev):
+    """The context a launch on ``dev`` runs in: the entry points launch on
+    the current device, so a tensor on another card (a mesh's shard i on
+    ``cuda:i``) makes ``dev`` current for the call; on the current card it
+    is a no-op."""
+    import torch
+
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)

@@ -141,12 +141,13 @@ def dense_agg(keys: torch.Tensor, valid: torch.Tensor,
             packed += (AGG_CODES[fn], agg_cols[c].data_ptr(), acc.data_ptr())
     out["__key"] = key
     lib = _lib()
-    rc = lib.flock_dense_agg(
-        keys.data_ptr(), valid.data_ptr(), keys.shape[0], out_capacity,
-        len(packed) // 3, (ctypes.c_int64 * len(packed))(*packed),
-        cnt.data_ptr(), key.data_ptr(), ovalid.data_ptr(), flags.data_ptr(),
-        scratch.data_ptr(), _GRID_MAX,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with _build.on_device(dev):
+        rc = lib.flock_dense_agg(
+            keys.data_ptr(), valid.data_ptr(), keys.shape[0], out_capacity,
+            len(packed) // 3, (ctypes.c_int64 * len(packed))(*packed),
+            cnt.data_ptr(), key.data_ptr(), ovalid.data_ptr(), flags.data_ptr(),
+            scratch.data_ptr(), _GRID_MAX,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "dense_agg")
     dense_agg.launches += 1
     return out, ovalid, flags[0]

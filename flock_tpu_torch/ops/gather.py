@@ -170,7 +170,8 @@ def gather(slot_cols: dict[str, torch.Tensor], present: torch.Tensor,
         for cols in (slot_cols, carry):
             for k, v in cols.items():
                 args += (v.element_size(), v.data_ptr(), out[k].data_ptr())
-        rc = _kernel()(struct.pack(f"{len(args)}q", *args))
+        with _build.on_device(dev):
+            rc = _kernel()(struct.pack(f"{len(args)}q", *args))
         if rc:
             _build.check(_build.load("gather"), rc, "gather")
         gather.launches += 1

@@ -252,12 +252,13 @@ def _launch(slot_cols, present, m, probe_cols, probe_valid, probe_key, pred,
                 for c, side in zip(names, sides)]
         args = [*ptrs, *codes, *outs]
         lib = _lib()
-        rc = lib.flock_join_agg(
-            probe_cols[probe_key].data_ptr(), probe_valid.data_ptr(), n,
-            present.data_ptr(), m.data_ptr(), span, len(names), len(terms),
-            len(outs), (ctypes.c_int64 * len(args))(*args), cnt.data_ptr(),
-            key.data_ptr(), ovalid.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+        with _build.on_device(dev):
+            rc = lib.flock_join_agg(
+                probe_cols[probe_key].data_ptr(), probe_valid.data_ptr(), n,
+                present.data_ptr(), m.data_ptr(), span, len(names), len(terms),
+                len(outs), (ctypes.c_int64 * len(args))(*args), cnt.data_ptr(),
+                key.data_ptr(), ovalid.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
         _build.check(lib, rc, "join_agg")
         join_aggregate.launches += 1
     return out, ovalid

@@ -10,9 +10,9 @@ inside the op.  PyTorch has real scatters (``index_add_``,
 formulations the TPU needed have no counterpart here.  Dense int32
 aggregation goes to kernel K2 (``ops/dense_agg.py``), the probe side of a
 lookup join to kernel K3 (``ops/gather.py``).  q6's ``rank_in_group`` and
-``sorted_segment_aggregate`` and the float-key join's ``build_lookup`` and
-``sorted_lookup_join`` are plain PyTorch, as the reference computes them in
-XLA, not Pallas.
+``sorted_segment_aggregate``, the float-key join's ``build_lookup`` and
+``sorted_lookup_join`` and the Compact node's ``compact`` are plain
+PyTorch, as the reference computes them in XLA, not Pallas.
 """
 
 from __future__ import annotations
@@ -65,6 +65,27 @@ def sort_rows(cols: dict[str, torch.Tensor], valid: torch.Tensor,
     for k in reversed(key_arrays):
         perm = perm[torch.sort(k[perm], stable=True).indices]
     return {n: c[perm] for n, c in cols.items()}, valid[perm]
+
+
+def compact(cols: dict[str, torch.Tensor], valid: torch.Tensor,
+            out_capacity: int):
+    """Move live rows to the front of an ``out_capacity``-row buffer,
+    keeping their order (the reference's ``compact``: a stable sort on the
+    validity flag, the rows past ``out_capacity`` cut off or zero rows
+    padded).  Returns (cols, valid, overflow)."""
+    n_in = valid.shape[0]
+    perm = torch.sort((~valid).to(torch.int8), stable=True).indices
+    take = min(out_capacity, n_in)
+    out = {}
+    for name, arr in cols.items():
+        a = arr[perm[:take]]
+        if take < out_capacity:
+            a = torch.cat([a, a.new_zeros(out_capacity - take)])
+        out[name] = a
+    n = valid.sum()
+    out_valid = torch.arange(out_capacity, device=valid.device) \
+        < torch.clamp(n, max=out_capacity)
+    return out, out_valid, n > out_capacity
 
 
 def _dinfo(v: torch.Tensor):

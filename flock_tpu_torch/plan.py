@@ -1,8 +1,7 @@
 """Static operator DAG and its lowering to PyTorch — the counterpart of
 ``flock_tpu/plan.py`` for the node kinds the ported queries and their
 duplicate fallbacks reach (Scan, Filter, Project, Aggregate, Join, Rank,
-FusedJoinAggregate; ``Sort`` and ``Compact`` come with the distributed
-executor).
+Sort, Compact, FusedJoinAggregate).
 
 The node classes, ``fuse_join_aggregates``, ``walk``, ``_sorted_by``,
 ``_slot_dense``, ``referenced_columns`` and ``dup_expand_capacity`` are the
@@ -146,6 +145,28 @@ class Rank(Node):
 
 
 @dataclass(frozen=True)
+class Sort(Node):
+    child: Node
+    keys: tuple[str, ...]
+    descending: tuple[bool, ...] = ()
+
+    def inputs(self):
+        return (self.child,)
+
+
+@dataclass(frozen=True)
+class Compact(Node):
+    """Densify live rows into a smaller buffer (CoalesceBatchesExec
+    analogue)."""
+
+    child: Node
+    out_capacity: int
+
+    def inputs(self):
+        return (self.child,)
+
+
+@dataclass(frozen=True)
 class FusedJoinAggregate(Node):
     """Join + (filters, projections) + grouped aggregation in one pass (K1) —
     joined rows are never built.  Produced by ``fuse_join_aggregates`` when
@@ -171,8 +192,8 @@ class FusedJoinAggregate(Node):
 
 def _sorted_by(node: Node, key: str) -> bool:
     """True when ``node``'s rows arrive grouped by ``key``: a Rank on that
-    key below order-preserving Filters and Projects (the reference's
-    ``_sorted_by``; its ``Sort`` branch comes with the Sort node)."""
+    key, or a Sort whose first key it is, below order-preserving Filters
+    and Projects (the reference's ``_sorted_by``)."""
     while True:
         if isinstance(node, Filter):
             node = node.child
@@ -184,6 +205,8 @@ def _sorted_by(node: Node, key: str) -> bool:
             node = node.child
         else:
             break
+    if isinstance(node, Sort):
+        return bool(node.keys) and node.keys[0] == key
     return isinstance(node, Rank) and node.group_key == key
 
 
@@ -322,6 +345,19 @@ def _lower_node(node: Node, tables, agg_capacity, fallback: bool,
             c.cols, c.valid, node.group_key, node.order_col, node.descending,
             node.rank_name, node.tiebreak)
         return Lowered(cols, valid, c.overflow, c.escape)
+
+    if isinstance(node, Sort):
+        c = lower(node.child, tables, agg_capacity, fallback, memo)
+        desc = node.descending or (False,) * len(node.keys)
+        cols, valid = kernels.sort_rows(c.cols, c.valid, list(node.keys),
+                                        desc)
+        return Lowered(cols, valid, c.overflow, c.escape)
+
+    if isinstance(node, Compact):
+        c = lower(node.child, tables, agg_capacity, fallback, memo)
+        cols, valid, ovf = kernels.compact(c.cols, c.valid, node.out_capacity)
+        return Lowered(cols, valid, kernels.any_flag(c.overflow, ovf),
+                       c.escape)
 
     if isinstance(node, FusedJoinAggregate):
         return _lower_fused(node, tables, agg_capacity, fallback, memo)
@@ -539,6 +575,8 @@ def referenced_columns(root: Node) -> set[str] | None:
             cols.update((n.group_key, n.order_col))
             if n.tiebreak:
                 cols.add(n.tiebreak)
+        elif isinstance(n, Sort):
+            cols.update(n.keys)
         elif isinstance(n, FusedJoinAggregate):
             return None  # pre-fusion plans only; fusion happens at compile
     return cols
@@ -597,7 +635,7 @@ def fuse_join_aggregates(node: Node) -> Node:
                         join=join, middle=tuple(reversed(chain)),
                         group_key=key, aggs=n.aggs, fallback=n,
                         out_capacity=n.out_capacity, group_key2=key2)
-        if isinstance(n, (Aggregate, Filter, Project, Rank)):
+        if isinstance(n, (Aggregate, Filter, Project, Rank, Sort, Compact)):
             return dataclasses.replace(n, child=rewrite(n.child))
         if isinstance(n, Join):
             return dataclasses.replace(n, build=rewrite(n.build),

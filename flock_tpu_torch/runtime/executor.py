@@ -265,27 +265,7 @@ class LocalExecutor:
         joins its key's slot (K3); it carries ``__session`` =
         ``min(rank, k - 1)`` and is live iff ``ok <= cid < end``.  Raises
         OverflowError when the sessions overflow ``agg_capacity``."""
-        rank_tab, ok_tab, end_tab, cmin, k = tables
-        span_bucket = len(rank_tab)
-        dev = self.device
-        cols = {c: torch.cat([ch.columns[c] for ch in chunks])
-                for c in chunks[0].columns}
-        valid_in = torch.cat([ch.valid for ch in chunks])
-        cidvec = torch.cat([torch.full((ch.capacity,), int(cid),
-                                       dtype=torch.int32, device=dev)
-                            for ch, cid in zip(chunks, cids)])
-        build = {"__k": (torch.arange(span_bucket, device=dev)
-                         + int(cmin)).to(torch.int32)}
-        for name, tab in (("__rank", rank_tab), ("__ok", ok_tab),
-                          ("__end", end_tab)):
-            build[name] = torch.from_numpy(np.ascontiguousarray(tab)).to(dev)
-        joined, hit, _, _ = kernels.lookup_join(
-            build, torch.ones(span_bucket, dtype=torch.bool, device=dev),
-            "__k", {"__k": cols[key].to(torch.int32)}, valid_in, "__k",
-            {"__rank": "__rank", "__ok": "__ok", "__end": "__end"},
-            build_slotted=True)
-        cols["__session"] = joined["__rank"].clamp(max=int(k) - 1)
-        valid = hit & (joined["__ok"] <= cidvec) & (cidvec < joined["__end"])
+        cols, valid = session_rows(chunks, key, tables, cids)
         return self._run({self._driving_relation(): Batch(cols, valid)},
                          agg_capacity, True,
                          lambda: f"session emission, {len(chunks)} chunks",
@@ -345,6 +325,38 @@ class LocalExecutor:
 
     def materialize(self, out: Batch) -> dict[str, np.ndarray]:
         return materialize_columns(self.spec, out.to_numpy())
+
+
+def session_rows(chunks: list[Batch], key: str, tables: tuple, cids):
+    """The rows of one session emission, labelled and filtered on the
+    chunks' device from the emission's dense tables (see
+    ``LocalExecutor.execute_session_tables``): the chunks concatenated,
+    each row's key slot gathered from ``rank_tab``/``ok_tab``/``end_tab``
+    (``kernels.lookup_join`` over a slotted build: kernel K3), the label
+    ``__session`` = ``min(rank, k - 1)`` added and a row live iff its
+    chunk ``cid`` lies in ``[ok, end)``.  Returns (cols, valid)."""
+    rank_tab, ok_tab, end_tab, cmin, k = tables
+    span_bucket = len(rank_tab)
+    dev = chunks[0].valid.device
+    cols = {c: torch.cat([ch.columns[c] for ch in chunks])
+            for c in chunks[0].columns}
+    valid_in = torch.cat([ch.valid for ch in chunks])
+    cidvec = torch.cat([torch.full((ch.capacity,), int(cid),
+                                   dtype=torch.int32, device=dev)
+                        for ch, cid in zip(chunks, cids)])
+    build = {"__k": (torch.arange(span_bucket, device=dev)
+                     + int(cmin)).to(torch.int32)}
+    for name, tab in (("__rank", rank_tab), ("__ok", ok_tab),
+                      ("__end", end_tab)):
+        build[name] = torch.from_numpy(np.ascontiguousarray(tab)).to(dev)
+    joined, hit, _, _ = kernels.lookup_join(
+        build, torch.ones(span_bucket, dtype=torch.bool, device=dev),
+        "__k", {"__k": cols[key].to(torch.int32)}, valid_in, "__k",
+        {"__rank": "__rank", "__ok": "__ok", "__end": "__end"},
+        build_slotted=True)
+    cols["__session"] = joined["__rank"].clamp(max=int(k) - 1)
+    valid = hit & (joined["__ok"] <= cidvec) & (cidvec < joined["__end"])
+    return cols, valid
 
 
 def materialize_columns(spec: QuerySpec, host: dict[str, np.ndarray]

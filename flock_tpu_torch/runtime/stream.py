@@ -1,5 +1,6 @@
 """Stream driver — the counterpart of ``flock_tpu/runtime/stream.py``:
-``generate_epochs`` and a ``StreamDriver`` for the range windows
+``generate_epochs``, ``generate_epoch_parts`` (the per-generator tables
+the sharded driver, ``parallel/stream.py``, shards) and a ``StreamDriver`` for the range windows
 (element-wise, tumbling, hopping, sliding, stagger), row-count windows,
 processing-time (global) windows and session windows, with q13's side
 input staged once per driver.
@@ -74,6 +75,31 @@ def generate_epochs(seconds: int, events_per_second: int, generators: int = 1
             per_epoch[e.epoch].append(epoch_to_relations(e))
     return [concat_relations(per_epoch.get(t, []), ("person", "auction", "bid"))
             for t in range(seconds)]
+
+
+def generate_epoch_parts(seconds: int, events_per_second: int,
+                         generators: int = 1) -> list[list[dict]]:
+    """Per-epoch, per-generator-partition relation tables, unmerged — the
+    unit the sharded driver spreads over its shards.  ``parts[t][i]`` is
+    the i-th table of epoch t, in generator order, as the reference's."""
+    cfg = NexmarkConfig(events_per_second=events_per_second,
+                        num_event_generators=generators)
+    # ctypes releases the GIL during native generation: partitions generate
+    # in parallel threads
+    with ThreadPoolExecutor(max_workers=min(generators, 8)) as pool:
+        results = list(pool.map(
+            lambda p: nexmark_generate_partition(cfg, seconds, p),
+            range(generators)))
+    parts: list[list[dict]] = [[] for _ in range(seconds)]
+    for eps in results:
+        for e in eps:
+            if e.epoch < seconds:
+                parts[e.epoch].append(epoch_to_relations(e))
+    return parts
+
+
+# the reference's name for the power-of-two capacity bucket
+_bucket_cap = _pow2_bucket
 
 
 def _bucket_cap_fine(n: int) -> int:
@@ -503,6 +529,49 @@ class SessionState:
         return st
 
 
+def window_epoch_ranges(spec: QuerySpec, seconds: int,
+                    occupancy: list[bool] | None = None) -> list[tuple]:
+    """Window tag → epoch list, for the range-based kinds (both stream
+    drivers slice so).
+
+    ``occupancy`` (per-epoch has-data flags) is required only for stagger
+    windows, whose anchors are data-dependent (window.rs:104-110 — a
+    window opens at the first event after the previous one closes)."""
+    kind = spec.window[0]
+    s = seconds
+    if kind == "elementwise":
+        return [(("epoch", t), [t]) for t in range(s)]
+    if kind == "tumbling":
+        w = spec.window[1]
+        return [(("win", k * w, k * w + w), list(range(k * w, k * w + w)))
+                for k in range(s // w)]
+    if kind == "hopping":
+        w, h = spec.window[1], spec.window[2]
+        return [(("win", t, t + w), list(range(t, t + w)))
+                for t in range(0, s, h) if t + w <= s]
+    if kind == "sliding":
+        # window.rs:94-97: emit at every slide point, covering the
+        # trailing w seconds (leading windows are partial)
+        w, sl = spec.window[1], spec.window[2]
+        return [(("win", max(0, t - w), t), list(range(max(0, t - w), t)))
+                for t in range(sl, s + 1, sl)]
+    if kind == "stagger":
+        # window.rs:104-110: first-event-anchored w-second windows
+        w = spec.window[1]
+        if occupancy is None:
+            raise ValueError("stagger windows need per-epoch occupancy")
+        out, t = [], 0
+        while t < s:
+            if occupancy[t]:
+                out.append((("win", t, t + w),
+                            list(range(t, min(t + w, s)))))
+                t += w
+            else:
+                t += 1
+        return out
+    raise ValueError(kind)
+
+
 class StreamDriver:
     def __init__(self, spec: QuerySpec, seconds: int,
                  side_input: dict | None = None,
@@ -516,44 +585,7 @@ class StreamDriver:
     # -- window slicing -------------------------------------------------------
 
     def _window_epoch_ranges(self, occupancy: list[bool] | None = None):
-        """Window tag → epoch list, for the range-based kinds.
-
-        ``occupancy`` (per-epoch has-data flags) is required only for stagger
-        windows, whose anchors are data-dependent (window.rs:104-110 — a
-        window opens at the first event after the previous one closes)."""
-        kind = self.spec.window[0]
-        s = self.seconds
-        if kind == "elementwise":
-            return [(("epoch", t), [t]) for t in range(s)]
-        if kind == "tumbling":
-            w = self.spec.window[1]
-            return [(("win", k * w, k * w + w), list(range(k * w, k * w + w)))
-                    for k in range(s // w)]
-        if kind == "hopping":
-            w, h = self.spec.window[1], self.spec.window[2]
-            return [(("win", t, t + w), list(range(t, t + w)))
-                    for t in range(0, s, h) if t + w <= s]
-        if kind == "sliding":
-            # window.rs:94-97: emit at every slide point, covering the
-            # trailing w seconds (leading windows are partial)
-            w, sl = self.spec.window[1], self.spec.window[2]
-            return [(("win", max(0, t - w), t), list(range(max(0, t - w), t)))
-                    for t in range(sl, s + 1, sl)]
-        if kind == "stagger":
-            # window.rs:104-110: first-event-anchored w-second windows
-            w = self.spec.window[1]
-            if occupancy is None:
-                raise ValueError("stagger windows need per-epoch occupancy")
-            out, t = [], 0
-            while t < s:
-                if occupancy[t]:
-                    out.append((("win", t, t + w),
-                                list(range(t, min(t + w, s)))))
-                    t += w
-                else:
-                    t += 1
-            return out
-        raise ValueError(kind)
+        return window_epoch_ranges(self.spec, self.seconds, occupancy)
 
     @staticmethod
     def _epoch_rows(tables: dict) -> int:

@@ -1,9 +1,9 @@
 """The port's CLI (``python -m flock_tpu_torch.cli``) against flock_tpu's:
-``nexmark run``, ``ysb run`` and ``fsql`` (one-shot and REPL) with
-``--device cpu`` print the reference's lines for the same arguments, times
-left out; the sinks, the metrics registry and the executor's records
-(tests/test_runtime_aux.py's tests, against the port's modules) (PyTorch
-port, CPU)."""
+``nexmark run`` (single-card and ``--distributed``), ``ysb run``, ``fsql``
+(one-shot and REPL) with ``--device cpu`` and ``explain`` print the
+reference's lines for the same arguments, times left out; the sinks, the
+metrics registry and the executor's records (tests/test_runtime_aux.py's
+tests, against the port's modules) (PyTorch port, CPU)."""
 
 import builtins
 import re
@@ -46,6 +46,12 @@ CASES = {
                    "--show", "3"],
     "nexmark-q3": ["nexmark", "run", "-q", "3", "-s", "2", "-e", "4000",
                    "--show", "2"],
+    "nexmark-q4-distributed": ["nexmark", "run", "-q", "4", "-s", "2", "-e",
+                               "2000", "-g", "8", "--distributed", "--show",
+                               "3"],
+    "nexmark-q9-distributed-4": ["nexmark", "run", "-q", "9", "-s", "1",
+                                 "-e", "3000", "-g", "4", "--distributed",
+                                 "--shards", "4", "--show", "2"],
     "ysb": ["ysb", "run", "-s", "10", "-e", "2000", "--show", "4"],
     "fsql-q4": ["fsql", NEXMARK_SQL[4], "-s", "2", "-e", "2000"],
     "fsql-q3": ["fsql", NEXMARK_SQL[3], "-s", "2", "-e", "4000"],
@@ -137,17 +143,45 @@ def test_nexmark_trace_writes_a_chrome_trace(monkeypatch, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["nexmark", "run", "-q", "4", flag] for flag in
-    ("--distributed", "--multihost", "--shards=2", "--coordinator=h:1",
-     "--num-processes=2", "--process-id=0")] + [
-    [cmd] for cmd in ("explain", "bench", "ingest", "produce")])
+    [cmd] for cmd in ("bench", "ingest", "produce")])
 def test_unported_subcommands_and_flags_are_refused(argv, capsys):
-    """What needs the sharded executor, the planner or ingestion is not
-    registered: argparse refuses it by name."""
+    """What needs ingestion or the bench is not registered: argparse
+    refuses it by name."""
     with pytest.raises(SystemExit) as e:
         cli.main(argv + ["--device", "cpu"])
     assert e.value.code == 2
     assert argv[-1].split("=")[0] in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["explain"], ["explain", "-q", "6"], ["explain", "-q", "13"],
+    ["explain", "-q", "99"], ["explain", "--sql", NEXMARK_SQL[3]],
+    ["explain", "--sql", YSB_SQL, "--dataset", "ysb"]])
+def test_explain_prints_the_reference_lines(argv, capsys):
+    """``explain`` needs no card and takes no --device: the stage DAG's
+    text, or the reference's error for an unknown query."""
+    capsys.readouterr()
+    rc = cli.main(argv)
+    got = capsys.readouterr()
+    assert rc == ref_cli.main(argv)
+    want = capsys.readouterr()
+    assert (got.out, got.err) == (want.out, want.err)
+
+
+@pytest.mark.parametrize("flag", [
+    "--multihost", "--coordinator=h:1", "--num-processes=2",
+    "--process-id=0", "--shards=2", "--distributed"])
+def test_ported_flags_are_accepted(flag, monkeypatch):
+    """The sharded run's flags parse; with the run stubbed, each reaches
+    the command with its value."""
+    seen = {}
+    monkeypatch.setattr(cli, "cmd_nexmark",
+                        lambda args: seen.update(vars(args)) or 0)
+    assert cli.main(["nexmark", "run", "-q", "4", flag, "--device",
+                     "cpu"]) == 0
+    name, _, value = flag[2:].partition("=")
+    got = seen[name.replace("-", "_")]
+    assert got == (int(value) if value.isdigit() else value or True)
 
 
 # -- tests/test_runtime_aux.py's sink and metrics tests, on the port --------

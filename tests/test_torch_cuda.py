@@ -743,3 +743,128 @@ def test_cli_fsql_on_the_card(dev, capsys):
         out.append([ln for ln in capsys.readouterr().out.splitlines()
                     if " rows in " not in ln])
     assert out[0] == out[1] and out[0][0] == "window ('sql',): 5 rows"
+
+
+# -- the sharded executor on the card ------------------------------------------
+
+
+def _dist_rows(results, names):
+    return [[np.asarray(r.columns[n]) for n in names] for r in results]
+
+
+@pytest.mark.parametrize("q,seconds,eps,gens", [
+    (4, 2, 20_000, 8), (9, 2, 20_000, 8), (4, 10, 350, 3), (6, 2, 20_000, 8),
+    (11, 12, 5_000, 8), (5, 12, 5_000, 8)])
+def test_distributed_on_the_card_equals_cpu(dev, q, seconds, eps, gens):
+    """DistStreamDriver over 8 shards on one card: the CPU path's windows,
+    row for row (K1, K2 and K3 launched per shard; q4 and q9 at G=3 rerun
+    on the fan-out)."""
+    from flock_tpu_torch.parallel.stream import DistStreamDriver
+    from flock_tpu_torch.runtime.stream import generate_epoch_parts
+
+    parts = generate_epoch_parts(seconds, eps, gens)
+    spec = get_query(q)
+    got = []
+    for device in (dev, "cpu"):
+        driver = DistStreamDriver(spec, seconds, 8, device=device)
+        got.append((driver.run(parts), driver.executor.fallback_runs))
+    (gpu, gfb), (cpu, cfb) = got
+    assert gfb == cfb and [r.tag for r in gpu] == [r.tag for r in cpu]
+    for g, c in zip(_dist_rows(gpu, spec.schema.names),
+                    _dist_rows(cpu, spec.schema.names)):
+        for a, b in zip(g, c):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_hash32_on_the_card_equals_cpu(dev):
+    from flock_tpu_torch.parallel.shuffle import hash32
+
+    rng = np.random.default_rng(4)
+    k32 = torch.from_numpy(rng.integers(-2**31, 2**31, 1 << 20)
+                           .astype(np.int32))
+    k64 = torch.from_numpy(rng.integers(-2**62, 2**62, 1 << 20))
+    for keys in ([k32], [k64], [k32, k64]):
+        assert torch.equal(hash32([k.to(dev) for k in keys]).cpu(),
+                           hash32(keys))
+
+
+def test_distributed_widen_on_the_card(dev):
+    """Duplicate auction ids (G=3) in one window over 8 shards: the fused
+    pass escapes, the fan-out's rows overflow a shuffle bucket, and the
+    window widens and reruns — on the card as on the CPU, to the same
+    rows."""
+    from flock_tpu_torch.parallel.executor import DistributedExecutor
+    from flock_tpu_torch.runtime.stream import generate_epoch_parts
+    from flock_tpu_torch.runtime.tables import concat_relations
+
+    parts = generate_epoch_parts(10, 350, 3)
+    shards = [dict(concat_relations(
+        [p for e in parts for j, p in enumerate(e) if j % 8 == i],
+        ("auction", "bid"))) for i in range(8)]
+    out = []
+    for device in (dev, "cpu"):
+        ex = DistributedExecutor(get_query(4), 8, device=device)
+        out.append((ex.execute_window(shards), ex.host_syncs,
+                    ex.fallback_runs))
+    (g, *gn), (c, *cn) = out
+    assert gn == cn and cn[0] > 2      # more than one attempt
+    for k in c:
+        np.testing.assert_array_equal(g[k], c[k])
+
+
+def test_one_process_nccl_multihost_on_the_card(dev):
+    """MultiHostExecutor in a one-process NCCL group holding 4 shards on
+    the card: the in-process 4-shard executor's rows."""
+    import socket
+
+    import torch.distributed as dist
+
+    from flock_tpu_torch.parallel.executor import DistributedExecutor
+    from flock_tpu_torch.parallel.mesh import make_multihost_mesh
+    from flock_tpu_torch.parallel.multihost import MultiHostExecutor
+    from flock_tpu_torch.runtime.stream import generate_epoch_parts
+    from flock_tpu_torch.runtime.tables import concat_relations
+
+    parts = generate_epoch_parts(2, 20_000, 4)
+    shards = [dict(concat_relations([e[i] for e in parts],
+                                    ("auction", "bid"))) for i in range(4)]
+    want = DistributedExecutor(get_query(4), 4, device=dev).execute_window(
+        shards)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        ex = MultiHostExecutor(get_query(4), mesh=make_multihost_mesh(4))
+        got = ex.execute_window(shards)
+    finally:
+        dist.destroy_process_group()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_mesh_across_cards_equals_one_card(dev):
+    """With as many cards as shards, shard i lives on ``cuda:i`` (the
+    exchange copies between cards): q9's rows equal the one-card mesh's.
+    Needs at least two cards."""
+    from flock_tpu_torch.parallel.executor import DistributedExecutor
+    from flock_tpu_torch.parallel.mesh import make_mesh
+    from flock_tpu_torch.runtime.stream import generate_epoch_parts
+    from flock_tpu_torch.runtime.tables import concat_relations
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards or more")
+    mesh = make_mesh(n)
+    assert [d.index for d in mesh.devices] == list(range(n))
+    parts = generate_epoch_parts(2, 20_000, n)
+    shards = [dict(concat_relations([e[i] for e in parts],
+                                    ("auction", "bid"))) for i in range(n)]
+    got = DistributedExecutor(get_query(9), n, mesh=mesh).execute_window(
+        shards)
+    want = DistributedExecutor(
+        get_query(9), n, mesh=make_mesh(n, device="cuda:0")).execute_window(
+        shards)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])

@@ -1,0 +1,130 @@
+"""The distributed stream driver against flock_tpu's on the same
+per-generator parts (8 generators over 8 shards): q4 element-wise, q5
+hopping, q7 tumbling, q12 processing-time and q11 session windows, window
+for window and row for row; q11's key-range device tier is the default and
+collective-free (an empty byte record), its generic label-table tier
+forced (PyTorch port, CPU)."""
+
+import numpy as np
+import pytest
+import torch
+
+from flock_tpu.parallel.stream import DistStreamDriver as RefDistDriver
+from flock_tpu.queries.nexmark import get_query as ref_get_query
+from flock_tpu.runtime import device_session as ref_ds
+from flock_tpu_torch.parallel import shuffle
+from flock_tpu_torch.parallel import stream as pstream
+from flock_tpu_torch.parallel.stream import DistStreamDriver
+from flock_tpu_torch.queries.nexmark import get_query
+from flock_tpu_torch.runtime import device_session as ds
+from flock_tpu_torch.runtime.stream import (StreamDriver, generate_epoch_parts,
+                                            generate_epochs)
+
+torch.set_num_threads(1)
+
+SECONDS, EPS, GENS, N = 12, 800, 8, 8
+
+
+@pytest.fixture(scope="module")
+def parts():
+    return generate_epoch_parts(SECONDS, EPS, GENS)
+
+
+_REF = {}
+
+
+def reference(qnum, parts, generic=False):
+    """The reference driver's windows, cached per module (its first run
+    of a query compiles)."""
+    key = (qnum, generic)
+    if key not in _REF:
+        mp = pytest.MonkeyPatch()
+        if generic:
+            mp.setattr(ref_ds, "session_fast_spec", lambda *a, **kw: None)
+        try:
+            _REF[key] = RefDistDriver(ref_get_query(qnum), SECONDS, N).run(
+                parts)
+        finally:
+            mp.undo()
+    return _REF[key]
+
+
+def _same_windows(got, want, names):
+    assert [g.tag for g in got] == [tuple(w.tag) for w in want]
+    for g, w in zip(got, want):
+        for name in names:
+            np.testing.assert_array_equal(g.columns[name], w.columns[name],
+                                          err_msg=f"{g.tag} {name}")
+
+
+@pytest.mark.parametrize("qnum", [4, 5, 7, 12])
+def test_dist_windowed_equals_reference(qnum, parts):
+    spec = get_query(qnum)
+    got = DistStreamDriver(spec, SECONDS, N, device="cpu").run(parts)
+    assert got
+    _same_windows(got, reference(qnum, parts), spec.schema.names)
+
+
+def test_dist_sessions_device_tier_is_default_and_collective_free(
+        parts, monkeypatch):
+    """q11's default is the key-range device tier: no collective, no
+    label-table emission, every emission equal to the reference's."""
+    calls = []
+    monkeypatch.setattr(pstream, "_dist_session_exec",
+                        lambda *a, **kw: calls.append(1))
+    spec = get_query(11)
+    driver = DistStreamDriver(spec, SECONDS, N, device="cpu")
+    shuffle.TALLY = tally = []
+    try:
+        got = driver.run(parts)
+    finally:
+        shuffle.TALLY = None
+    assert tally == [] and calls == []
+    assert driver.session_stats["dispatches"] > 0
+    _same_windows(got, reference(11, parts), spec.schema.names)
+
+
+def test_dist_sessions_generic_tier(parts, monkeypatch):
+    """The label-table tier forced: emissions labelled on the shards
+    (never the host batch), equal to the reference's generic tier and, as
+    row sets, to the single-device driver's."""
+    monkeypatch.setattr(ds, "session_fast_spec", lambda *a, **kw: None)
+    calls = {"tables": 0, "host": 0}
+    orig_exec = pstream._dist_session_exec
+    orig_rows = DistStreamDriver._exec_row_sharded
+
+    def spy_exec(*a, **kw):
+        calls["tables"] += 1
+        return orig_exec(*a, **kw)
+
+    def spy_rows(self, *a, **kw):
+        calls["host"] += 1
+        return orig_rows(self, *a, **kw)
+
+    monkeypatch.setattr(pstream, "_dist_session_exec", spy_exec)
+    monkeypatch.setattr(DistStreamDriver, "_exec_row_sharded", spy_rows)
+    spec = get_query(11)
+    got = DistStreamDriver(spec, SECONDS, N, device="cpu").run(parts)
+    assert calls["tables"] > 0 and calls["host"] == 0
+    names = spec.schema.names
+    _same_windows(got, reference(11, parts, generic=True), names)
+    local = StreamDriver(spec, SECONDS, device="cpu").run(
+        generate_epochs(SECONDS, EPS, GENS))
+
+    def rows(results):
+        return sorted(r for res in results for r in zip(
+            *(np.asarray(res.columns[n]).tolist() for n in names)))
+    assert rows(got) == rows(local)
+
+
+def test_dist_sessions_restart_with_doubled_spans(parts, monkeypatch):
+    """An emission buffer too small for an epoch's closures restarts the
+    device tier with doubled spans; the rows stay the reference's."""
+    spec = get_query(11)
+    driver = DistStreamDriver(spec, SECONDS, N, device="cpu")
+    real = driver._session_device_once
+    monkeypatch.setattr(driver, "_session_device_once",
+                        lambda *a: real(*a[:-1], a[-1] // 4096))
+    got = driver.run(parts)
+    assert driver.session_stats["restarts"] > 0
+    _same_windows(got, reference(11, parts), spec.schema.names)

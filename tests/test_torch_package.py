@@ -56,11 +56,16 @@ def test_resolve_device(no_cuda):
 
 
 @pytest.mark.parametrize("entry", ["executor", "driver", "batch", "run",
-                                   "cli", "sql"])
+                                   "cli", "sql", "mesh", "dist-executor",
+                                   "dist-driver", "cli-distributed",
+                                   "cli-multihost"])
 def test_no_silent_cpu_fallback(no_cuda, entry):
     """Without CUDA, every entry point called with no device raises."""
     from flock_tpu_torch import cli
     from flock_tpu_torch.batch import Batch
+    from flock_tpu_torch.parallel.executor import DistributedExecutor
+    from flock_tpu_torch.parallel.mesh import make_mesh
+    from flock_tpu_torch.parallel.stream import DistStreamDriver
     from flock_tpu_torch.sql.catalog import nexmark_catalog
     from flock_tpu_torch.sql.lower import sql_to_spec
 
@@ -76,6 +81,15 @@ def test_no_silent_cpu_fallback(no_cuda, entry):
             run_nexmark(4, seconds=1, events_per_second=100)
         elif entry == "cli":
             cli.main(["fsql", "SELECT * FROM bid;", "-s", "1", "-e", "100"])
+        elif entry == "mesh":
+            make_mesh(8)
+        elif entry == "dist-executor":
+            DistributedExecutor(spec, 8)
+        elif entry == "dist-driver":
+            DistStreamDriver(spec, 2, 8)
+        elif entry in ("cli-distributed", "cli-multihost"):
+            cli.main(["nexmark", "run", "-q", "4", "-s", "1", "-e", "100",
+                      "--" + entry[4:]])
         else:
             StreamDriver(sql_to_spec("SELECT * FROM bid;", nexmark_catalog()),
                          2)
