@@ -105,6 +105,27 @@ and the script exits non-zero:
    feed-inclusive passes, the byte record (``shuffle.TALLY``) per window.
    The SQL phases take one compute-only and one feed-inclusive pass (no
    profile);
+   Ingestion, recovery and stacked windows (``ingest``, ``recovery``,
+   ``stacked``, after ``dist clean``): q4 over 4 s x 250 k events/s of
+   auction and bid fragments (1,024 rows each) scrambled with duplicates,
+   sent by ``send_fragments`` to a ``SocketIngestServer`` and run by
+   ``IngestDriver``; q3 over the person and auction fragments of 4 s x 100
+   k events/s that ``produce`` writes to a file and ``ingest --file``
+   tails (the CLI in process); each window's rows equal to the direct
+   ``StreamDriver``'s on the same epochs and to numpy's, the launches the
+   direct run's (``WINDOW_LAUNCHES`` a window), one flag read a window, and
+   produce, assemble and execute seconds apart.  The first bench epoch as
+   one q4 window: ``to_fragments`` at ``SYNC_GRANULE``, a
+   ``FileStateBackend`` checkpoint, an ``Arena`` that loses one bid
+   fragment and gets another twice, the lost one read back; the recovered
+   window on ``LocalExecutor`` and row-sharded over an 8-shard
+   ``DistributedExecutor`` equal to the direct window's rows, checkpoint
+   bytes and write and read seconds printed.  ``execute_stacked`` over
+   the 4 bench windows of q4 and of q9 (one flag read for the set, the
+   per-window passes' launches, every window ``execute_batches``' slot for
+   slot, the stacked time beside the per-window pass's), and the G=3
+   duplicates window stacked between two clean ones (one rerun, one more
+   flag read, ``WINDOW_FALLBACK_LAUNCHES`` for it, rows equal to numpy's);
 4. the duplicate configuration (10 s x 350 events/s, 3 generators, one 10 s
    window) for q4, q9, q6, SQL q4 and q3 on the card against numpy — q4,
    q9, q6 and SQL q4 rerun the window with the duplicate-faithful
@@ -211,6 +232,31 @@ QUERY_KERNELS.update({"dist-q11": ("dense_agg",),
                       "multihost-q4": ("join_agg", "dense_agg")})
 for _n in (1, 2, 4):
     QUERY_KERNELS[f"dist-q4-n{_n}"] = QUERY_KERNELS["dist-q4"]
+
+# ingestion, recovery and stacked windows.  The ingest path parses and
+# re-encodes every row in Python on the host, as the reference does (~10 us
+# a row for fragment_lines and EpochAssembler together on the H100
+# machine's host, PERF.md §5), so the ingest phase runs 4 s of the
+# one-generator stream at 250 k events/s (~1 M events; q3's person and
+# auction fragments at 100 k events/s), not the bench rate; recovery and
+# stacked run on the bench epochs.
+INGEST_EPS, INGEST_Q3_EPS, INGEST_GRANULE = 250_000, 100_000, 1024
+# a window's launches per lowering on the single card: q4's build slotting
+# and per-category aggregate on K2 around its fused pass on K1; q9's build
+# slotting, fused pass and the gather of the winners back to the bids; q3's
+# person slotting and gather
+WINDOW_LAUNCHES = {"q4": {"join_agg": 1, "dense_agg": 2, "gather": 0},
+                   "q9": {"join_agg": 1, "dense_agg": 1, "gather": 1},
+                   "q3": {"join_agg": 0, "dense_agg": 1, "gather": 1}}
+# and per fallback lowering (a window whose auction ids repeat): the
+# build's slotting and the per-category (q4) or per-auction (q9) aggregate
+# on K2, q9's gather of the winners on K3; the fan-out and the unfused
+# partial plain
+WINDOW_FALLBACK_LAUNCHES = {"q4": {"join_agg": 0, "dense_agg": 2,
+                                   "gather": 0},
+                            "q9": {"join_agg": 0, "dense_agg": 2,
+                                   "gather": 1}}
+QUERY_KERNELS["ingest-q3"] = ("dense_agg", "gather")
 
 
 # the SQL runs' kernels: as their hand plans', but SQL q6 is not fused (a
@@ -3058,6 +3104,440 @@ def phase_dist_ysb(card_line: str, cfg, windows, gen_s: float,
         cfg.events_per_second, gen_s, card_line, DIST_LAUNCHES["ysb"])
 
 
+# -- ingestion, fragment recovery and stacked windows -------------------------
+
+
+def zeroed_counters() -> dict:
+    """The kernel wrappers, every launch count set to 0."""
+    wrappers = counters()
+    for w in wrappers.values():
+        w.launches = 0
+    return wrappers
+
+
+def read_launches(wrappers: dict) -> dict:
+    return {k: w.launches for k, w in wrappers.items()}
+
+
+@contextlib.contextmanager
+def recorded(cls, name: str):
+    """Every call of the method ``cls.name`` inside the block, as
+    (seconds, return value); the method runs as it would."""
+    calls = []
+    orig = getattr(cls, name)
+
+    def call(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = orig(self, *args, **kw)
+        calls.append((time.perf_counter() - t0, out))
+        return out
+
+    setattr(cls, name, call)
+    try:
+        yield calls
+    finally:
+        setattr(cls, name, orig)
+
+
+def scrambled(lines: list, seed: int, dup: int = 5) -> list:
+    """Out-of-order, duplicated delivery (tests/test_ingest.py:46-53)."""
+    import random
+
+    rng = random.Random(seed)
+    out = list(lines)
+    rng.shuffle(out)
+    for _ in range(dup):
+        out.insert(rng.randrange(len(out) + 1), rng.choice(lines))
+    return out
+
+
+def expect_launches(label: str, got: dict, query: str, lowerings: int,
+                    other: dict | None = None, fallbacks: int = 0) -> None:
+    """``got`` must be ``WINDOW_LAUNCHES[query]`` times the lowerings plus
+    ``WINDOW_FALLBACK_LAUNCHES[query]`` times the fallback lowerings, and
+    ``other``'s (a direct or per-window run's on the same windows) where
+    given."""
+    extra = WINDOW_FALLBACK_LAUNCHES.get(query, {})
+    want = {k: lowerings * v + fallbacks * extra.get(k, 0)
+            for k, v in WINDOW_LAUNCHES[query].items()}
+    if got != want or (other is not None and got != other):
+        raise AssertionError(f"{label}: launches {got}, predicted {want}, "
+                             f"the other run's {other}")
+
+
+def _direct(spec, epochs: list, label: str) -> tuple:
+    """StreamDriver.run on the card: (results, launches, seconds)."""
+    from flock_tpu_torch.runtime.stream import StreamDriver
+
+    wrappers = zeroed_counters()
+    driver = StreamDriver(spec, len(epochs), device="cuda")
+    with no_plain_on_card():
+        t0 = time.perf_counter()
+        results = driver.run(epochs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    ex = driver.executor
+    if ex.fallback_runs or ex.host_syncs != len(results):
+        raise AssertionError(f"{label} direct: {ex.host_syncs} syncs, "
+                             f"{ex.fallback_runs} fallback runs")
+    return results, read_launches(wrappers), seconds
+
+
+def _ingest_checks(label: str, results, direct, epochs, numpy_fn, names,
+                   ex) -> None:
+    """An ingest run's windows: the direct driver's rows in order, each
+    window's rows numpy's; one flag read a window, no fallback."""
+    from flock_tpu_torch.runtime.tables import window_relations
+
+    if [r.tag for r in results] != [r.tag for r in direct]:
+        raise AssertionError(f"{label}: window tags differ")
+    rels = window_relations(ex.spec.relations)
+    for r, d, e in zip(results, direct, epochs):
+        _same_rows(r.columns, d.columns, names, f"{label} {r.tag} vs direct")
+        _same_row_set(r.columns, numpy_fn({k: e[k] for k in rels}), names,
+                      f"{label} {r.tag} vs numpy")
+    if ex.host_syncs != len(results) or ex.fallback_runs:
+        raise AssertionError(f"{label}: {ex.host_syncs} host syncs, "
+                             f"{ex.fallback_runs} fallback runs for "
+                             f"{len(results)} windows")
+
+
+def phase_ingest(card_line: str, launches: dict) -> None:
+    """The external fragment stream → arena → windowed driver path on the
+    card.  q4: the one-generator stream at ``INGEST_EPS``, auction and bid
+    fragments of ``INGEST_GRANULE`` rows scrambled with duplicates, sent by
+    ``send_fragments`` to a ``SocketIngestServer`` in another thread and
+    run by ``IngestDriver``.  q3: ``produce`` (in process) writes q3's
+    person and auction fragments at ``INGEST_Q3_EPS`` to a file, ``ingest
+    --file`` tails it.  Each: rows equal the direct StreamDriver's on the
+    same epochs (window for window, in order) and numpy's; launches equal
+    the direct run's and ``WINDOW_LAUNCHES`` a window, exactly; one flag
+    read a window.  Produce, assemble and execute seconds apart."""
+    import tempfile
+    import threading
+
+    from flock_tpu_torch.datagen.ingest import (IngestDriver,
+                                                SocketIngestServer,
+                                                fragment_lines,
+                                                send_fragments)
+    from flock_tpu_torch.queries.nexmark import get_query
+    from flock_tpu_torch.runtime.stream import StreamDriver, generate_epochs
+
+    seconds = BENCH_SECONDS
+    epochs = generate_epochs(seconds, INGEST_EPS, 1)
+    spec = get_query(4)
+    direct, direct_launches, direct_s = _direct(spec, epochs, "ingest-q4")
+    t0 = time.perf_counter()
+    lines = scrambled(fragment_lines(epochs, "q4", INGEST_GRANULE,
+                                     ("auction", "bid")), seed=7)
+    produce_s = time.perf_counter() - t0
+    rows_in = sum(len(e[r]["b_date_time" if r == "bid" else "a_id"])
+                  for e in epochs for r in ("auction", "bid"))
+    srv = SocketIngestServer()
+    wrappers = zeroed_counters()
+    try:
+        producer = threading.Thread(target=send_fragments,
+                                    args=(srv.address, lines), daemon=True)
+        t0 = time.perf_counter()
+        producer.start()
+        with no_plain_on_card(), executors_made() as made, \
+                recorded(StreamDriver, "run") as runs:
+            results = IngestDriver(spec, seconds, "q4", device="cuda").run(
+                srv.lines(len(lines), timeout_s=600))
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        producer.join(60)
+        if producer.is_alive():
+            raise AssertionError("ingest-q4: the producer did not finish")
+    finally:
+        srv.close()
+    launches["ingest-q4"] = read_launches(wrappers)
+    expect_launches("ingest-q4", launches["ingest-q4"], "q4", len(results),
+                    direct_launches)
+    _ingest_checks("ingest-q4", results, direct, epochs, numpy_q4,
+                   spec.schema.names, made[-1])
+    execute_s = runs[0][0]
+    print("ingest-q4: " + json.dumps({
+        "seconds": seconds, "eps": INGEST_EPS, "granule": INGEST_GRANULE,
+        "fragments": len(lines), "rows_in": rows_in,
+        "windows": len(results), "produce_s": produce_s,
+        "transport_assemble_s": total_s - execute_s, "execute_s": execute_s,
+        "direct_s": direct_s,
+        "produce_rows_per_s": rows_in / produce_s,
+        "assemble_rows_per_s": rows_in / (total_s - execute_s),
+        "execute_rows_per_s": rows_in / execute_s,
+        "launches": launches["ingest-q4"],
+        "direct_launches": direct_launches,
+        "host_syncs": made[-1].host_syncs,
+        "fallback_runs": made[-1].fallback_runs, "card": card_line}),
+        flush=True)
+    del epochs, direct, results, lines
+
+    epochs = generate_epochs(seconds, INGEST_Q3_EPS, 1)
+    spec = get_query(3)
+    direct, direct_launches, direct_s = _direct(spec, epochs, "ingest-q3")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "q3.jsonl")
+        t0 = time.perf_counter()
+        produced = _cli_lines(
+            ["produce", "-q", "3", "-s", str(seconds), "-e",
+             str(INGEST_Q3_EPS), "--granule", str(INGEST_GRANULE), "--file",
+             path], "produce-q3", {}, ())
+        produce_s = time.perf_counter() - t0
+        n = int(produced[0].split()[1])
+        with executors_made() as made, \
+                recorded(IngestDriver, "run") as ingests, \
+                recorded(StreamDriver, "run") as runs:
+            t0 = time.perf_counter()
+            printed = _cli_lines(
+                ["ingest", "-q", "3", "-s", str(seconds), "--file", path,
+                 "--lines", str(n)], "ingest-q3", launches,
+                QUERY_KERNELS["ingest-q3"])
+            total_s = time.perf_counter() - t0
+    results = ingests[0][1]
+    expect_launches("ingest-q3", launches["ingest-q3"], "q3", len(results),
+                    direct_launches)
+    _ingest_checks("ingest-q3", results, direct, epochs, numpy_q3,
+                   spec.schema.names, made[-1])
+    want = [f"window {r.tag}: {len(r.columns['a_id'])} rows" for r in direct]
+    if printed[:len(want)] != want:
+        raise AssertionError(f"ingest-q3 printed {printed[:len(want)]}, "
+                             f"the direct run {want}")
+    rows_in = sum(len(e[r][k]) for e in epochs
+                  for r, k in (("person", "p_id"), ("auction", "a_id")))
+    execute_s = runs[0][0]
+    print("ingest-q3: " + json.dumps({
+        "seconds": seconds, "eps": INGEST_Q3_EPS, "fragments": n,
+        "rows_in": rows_in, "windows": len(results),
+        "produce_s": produce_s,
+        "tail_assemble_s": ingests[0][0] - execute_s,
+        "execute_s": execute_s, "direct_s": direct_s, "cli_s": total_s,
+        "assemble_rows_per_s": rows_in / (ingests[0][0] - execute_s),
+        "execute_rows_per_s": rows_in / execute_s,
+        "launches": launches["ingest-q3"],
+        "direct_launches": direct_launches,
+        "host_syncs": made[-1].host_syncs,
+        "fallback_runs": made[-1].fallback_runs, "card": card_line}),
+        flush=True)
+
+
+def phase_recovery(epochs: list, card_line: str, launches: dict) -> None:
+    """Lost-fragment recovery at the bench size (tests/test_fault_tolerance
+    .py's two tests): the first bench epoch as one q4 window,
+    ``to_fragments`` at ``SYNC_GRANULE`` and ``FileStateBackend.write``
+    (the checkpoint), an ``Arena`` that loses one bid fragment and gets
+    another twice, ``missing`` → ``backend.read`` → ``take``.  The
+    recovered window runs on ``LocalExecutor`` and row-sharded round robin
+    over an 8-shard ``DistributedExecutor`` on the card; both give the
+    direct window's rows; a re-delivered fragment returns PROCESSED."""
+    import tempfile
+
+    from flock_tpu_torch.parallel.executor import DistributedExecutor
+    from flock_tpu_torch.queries.nexmark import get_query
+    from flock_tpu_torch.runtime.arena import Arena, WindowStatus
+    from flock_tpu_torch.runtime.executor import (LocalExecutor,
+                                                  materialize_columns)
+    from flock_tpu_torch.runtime.payload import SYNC_GRANULE, to_fragments
+    from flock_tpu_torch.runtime.state import FileStateBackend
+
+    spec = get_query(4)
+    window = {r: epochs[0][r] for r in ("auction", "bid")}
+    names = spec.schema.names
+    ex = LocalExecutor(spec, device="cuda")
+    t0 = time.perf_counter()
+    want = ex.materialize(ex.execute_window(window))
+    direct_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as root:
+        backend = FileStateBackend(root=root)
+        t0 = time.perf_counter()
+        frags = {rel: to_fragments(cols, f"recovery-{rel}")
+                 for rel, cols in window.items()}
+        for fs in frags.values():
+            for f in fs:
+                backend.write(0, f)
+        write_s = time.perf_counter() - t0
+        ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                         for d, _, files in os.walk(root) for f in files)
+        lost = len(frags["bid"]) // 2
+        arena = Arena()
+        for rel, fs in frags.items():
+            for f in fs + fs[:1]:
+                if not (rel == "bid" and f.fragment.seq_num == lost):
+                    arena.collect(f)
+        t0 = time.perf_counter()
+        missing = arena.missing(("recovery-bid", 0))
+        if missing != [lost]:
+            raise AssertionError(f"recovery: missing {missing}, not [{lost}]")
+        for seq in missing:
+            status = arena.collect(backend.read("recovery-bid", 0, 0, seq))
+        if status is not WindowStatus.READY:
+            raise AssertionError(f"recovery: {status} after the read")
+        tables = {rel: arena.take((f"recovery-{rel}", 0)) for rel in window}
+        read_s = time.perf_counter() - t0
+    if arena.collect(frags["bid"][0]) is not WindowStatus.PROCESSED:
+        raise AssertionError("recovery: a re-delivered fragment was taken")
+    for rel, cols in window.items():
+        for k, v in cols.items():
+            if not np.array_equal(tables[rel][k], v):
+                raise AssertionError(f"recovery: {rel}.{k} differs")
+
+    wrappers = zeroed_counters()
+    syncs = ex.host_syncs
+    with no_plain_on_card():
+        t0 = time.perf_counter()
+        got = ex.materialize(ex.execute_window(tables))
+        local_s = time.perf_counter() - t0
+    syncs = ex.host_syncs - syncs
+    launches["recovery-q4"] = read_launches(wrappers)
+    expect_launches("recovery-q4", launches["recovery-q4"], "q4", 1)
+    _same_rows(got, want, names, "recovery-q4 vs the direct window")
+    _same_row_set(got, numpy_q4(window), names, "recovery-q4 vs numpy")
+    shards = [{rel: {k: v[i::DIST_SHARDS] for k, v in cols.items()}
+               for rel, cols in tables.items()} for i in range(DIST_SHARDS)]
+    dist = DistributedExecutor(spec, DIST_SHARDS, device="cuda")
+    wrappers = zeroed_counters()
+    with no_plain_on_card(fused_partial=True):
+        t0 = time.perf_counter()
+        got = materialize_columns(spec, dist.execute_window(shards))
+        torch.cuda.synchronize()
+        dist_s = time.perf_counter() - t0
+    launches["recovery-dist-q4"] = read_launches(wrappers)
+    expected = expected_launches(DIST_LAUNCHES["q4"], dist, DIST_SHARDS,
+                                 launches["recovery-dist-q4"])
+    if launches["recovery-dist-q4"] != expected or dist.fallback_runs \
+            or dist.host_syncs != 1:
+        raise AssertionError(f"recovery-dist-q4: launches "
+                             f"{launches['recovery-dist-q4']}, predicted "
+                             f"{expected}; {dist.host_syncs} syncs, "
+                             f"{dist.fallback_runs} fallback runs")
+    _same_row_set(got, want, names, "recovery-dist-q4 vs the direct window")
+    print("recovery: " + json.dumps({
+        "auction_rows": len(window["auction"]["a_id"]),
+        "bid_rows": len(window["bid"]["auction"]),
+        "granule": SYNC_GRANULE, "fragments": sum(map(len, frags.values())),
+        "lost": missing, "checkpoint_bytes": ckpt_bytes,
+        "write_s": write_s, "read_s": read_s, "local_execute_s": local_s,
+        "direct_execute_s": direct_s,
+        "dist_execute_s": dist_s, "launches": launches["recovery-q4"],
+        "dist_launches": launches["recovery-dist-q4"],
+        "host_syncs": syncs, "dist_host_syncs": dist.host_syncs,
+        "fallback_runs": ex.fallback_runs + dist.fallback_runs,
+        "card": card_line}), flush=True)
+
+
+def _best_s(fn, reps: int = 3) -> float:
+    """The least wall time of ``fn()`` to a synchronised card."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def _stacked_equals_per_window(label: str, ex, staged, out) -> list:
+    """Window i of a stacked output equals ``execute_batches`` on window
+    i, slot for slot; returns the per-window outputs' rows."""
+    rows = []
+    for i, w in enumerate(staged):
+        one = ex.execute_batches(w)
+        if not torch.equal(out.valid[i], one.valid) or any(
+                not torch.equal(out.columns[c][i], t)
+                for c, t in one.columns.items()):
+            raise AssertionError(f"{label}: window {i} differs from "
+                                 "execute_batches")
+        rows.append(ex.materialize(one))
+    return rows
+
+
+def phase_stacked(epochs: list, card_line: str, launches: dict) -> None:
+    """``execute_stacked`` over the 4 bench windows of q4 and of q9,
+    staged at the driver's per-epoch capacities: one flag read for the set,
+    the per-window passes' launches exactly, every window slot for slot
+    ``execute_batches``' and its rows the bench run's (``RESULTS``); the
+    stacked compute-only time beside the per-window pass's.  Then the G=3
+    duplicates window (10 s x 350 events/s, 3 generators) between two clean
+    one-generator windows of the same capacities: only it reruns on the
+    fallback, and every window's rows are the per-window path's and
+    numpy's."""
+    from flock_tpu_torch.batch import round_up
+    from flock_tpu_torch.queries.nexmark import get_query
+    from flock_tpu_torch.runtime.executor import LocalExecutor
+    from flock_tpu_torch.runtime.stream import StreamDriver, generate_epochs
+    from flock_tpu_torch.runtime.tables import concat_relations
+
+    rels = ("auction", "bid")
+    for q in (4, 9):
+        label, spec = f"stacked-q{q}", get_query(q)
+        caps = StreamDriver(spec, BENCH_SECONDS, device="cpu").epoch_caps(
+            epochs)
+        ex = LocalExecutor(spec, device="cuda")
+        staged = [ex.prepare_window({r: e[r] for r in rels}, caps)
+                  for e in epochs]
+        wrappers = zeroed_counters()
+        with no_plain_on_card():
+            out, overflow = ex.execute_stacked(staged)
+        torch.cuda.synchronize()
+        launches[label] = read_launches(wrappers)
+        syncs = ex.host_syncs
+        wrappers = zeroed_counters()
+        rows = _stacked_equals_per_window(label, ex, staged, out)
+        per_window = read_launches(wrappers)
+        expect_launches(label, launches[label], f"q{q}", len(staged),
+                        per_window)
+        if syncs != 1 or ex.fallback_runs or overflow.any():
+            raise AssertionError(f"{label}: {syncs} host syncs, "
+                                 f"{ex.fallback_runs} fallback runs")
+        for got, res in zip(rows, RESULTS[f"q{q}"]):
+            _same_rows(got, res.columns, spec.schema.names,
+                       f"{label} {res.tag} vs the bench run")
+        stacked_s = _best_s(lambda: ex.execute_stacked(staged))
+        per_window_s = _best_s(lambda: [ex.execute_batches(w)
+                                        for w in staged])
+        print(f"{label}: " + json.dumps({
+            "windows": len(staged), "caps": caps,
+            "compute_ms": stacked_s * 1e3,
+            "per_window_compute_ms": per_window_s * 1e3,
+            "launches": launches[label],
+            "per_window_launches": per_window, "host_syncs": syncs,
+            "per_window_host_syncs": len(staged),
+            "fallback_runs": ex.fallback_runs, "card": card_line}),
+            flush=True)
+
+    dup = concat_relations(generate_epochs(10, 350, 3), rels)
+    clean = [concat_relations(generate_epochs(10, eps, 1), rels)
+             for eps in (350, 700)]
+    windows = [clean[0], dup, clean[1]]
+    caps = {r: max(round_up(max(len(next(iter(w[r].values()))), 1), 128)
+                   for w in windows) for r in rels}
+    for q in (4, 9):
+        label, spec = f"stacked-dup-q{q}", get_query(q)
+        ex = LocalExecutor(spec, device="cuda")
+        staged = [ex.prepare_window(w, caps) for w in windows]
+        wrappers = zeroed_counters()
+        with no_plain_on_card():
+            out, overflow = ex.execute_stacked(staged)
+        torch.cuda.synchronize()
+        launches[label] = read_launches(wrappers)
+        syncs, runs = ex.host_syncs, ex.fallback_runs
+        if (syncs, runs) != (2, 1) or overflow.any():
+            raise AssertionError(f"{label}: {syncs} host syncs, {runs} "
+                                 "fallback runs for one escaped window")
+        wrappers = zeroed_counters()
+        rows = _stacked_equals_per_window(label, ex, staged, out)
+        expect_launches(label, launches[label], f"q{q}", len(staged),
+                        read_launches(wrappers), fallbacks=runs)
+        for i, (got, w) in enumerate(zip(rows, windows)):
+            _same_row_set(got, numpy_query(q, w), spec.schema.names,
+                          f"{label} window {i} vs numpy")
+        print(f"{label}: " + json.dumps({
+            "windows": len(staged), "caps": caps,
+            "launches": launches[label], "host_syncs": syncs,
+            "fallback_runs": runs, "escaped": [1], "card": card_line}),
+            flush=True)
+
+
 def kernels_line(cases: list[dict], launches: dict[str, dict]) -> dict:
     """One entry per kernel: its cases on the main path summed, its
     launches over every query's main-path run (and per query)."""
@@ -3137,6 +3617,12 @@ def main() -> int:
         phase_cli(epochs, launches)
     with phase_seconds("dist clean"):
         phase_dist_clean(epochs, gen_s, card_line, launches)
+    with phase_seconds("ingest"):
+        phase_ingest(card_line, launches)
+    with phase_seconds("recovery"):
+        phase_recovery(epochs, card_line, launches)
+    with phase_seconds("stacked"):
+        phase_stacked(epochs, card_line, launches)
     RESULTS.clear()
     del epochs
     with phase_seconds("q3"):

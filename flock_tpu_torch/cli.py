@@ -10,6 +10,10 @@ analogue, flock-cli/src/{main,nexmark,ysb}.rs):
   explain      [-q N | --sql SQL] [--dataset nexmark|ysb]
   fsql         [SQL] [--dataset nexmark|ysb] [-s] [-e] [-g] [--show N]
                [--device D]
+  ingest       (--file PATH | --listen PORT) --lines N [-q N] [-s SECONDS]
+               [--timeout S] [--show N] [--device D]
+  produce      (--file PATH | --connect HOST:PORT) [-q N] [-s SECONDS]
+               [-e EVENTS_PER_SEC] [-g GENERATORS] [--granule ROWS]
 
     python -m flock_tpu_torch.cli nexmark run -q 4 -s 4 -e 4000000
     python -m flock_tpu_torch.cli nexmark run -q 4 -g 8 --distributed
@@ -21,9 +25,12 @@ card and without it, every subcommand that runs a query raises.
 ``--distributed`` runs the sharded driver over ``--shards`` shards (on one
 card all of them on it); ``--multihost`` runs one window over the shards
 of every process (``--shards`` in all, split evenly), each process
-generating only its own partitions.  The reference's ``bench``, ``ingest``
-and ``produce`` subcommands come with the modules they need (ingestion,
-the bench), so argparse refuses them until then.
+generating only its own partitions.  ``produce`` writes a query's
+generated relations as fragment lines to a file or a socket, and
+``ingest`` runs the query over such a stream (a tailed file or a TCP
+listener), on the card unless ``--device cpu``.  The reference's ``bench``
+subcommand drives its JAX benchmark harness; the port has none yet, so
+argparse refuses it.
 """
 
 from __future__ import annotations
@@ -265,6 +272,68 @@ def cmd_fsql(args) -> int:
             print(f"error: {e}")
 
 
+def cmd_ingest(args) -> int:
+    """Run a query over an EXTERNAL fragment stream (the kafka-trigger
+    ingestion analogue, datasource/kafka.rs): fragments arrive as line JSON
+    over a TCP socket or an append-only file, reassemble through the arena,
+    and the windowed driver executes epochs as they complete."""
+    from flock_tpu_torch.datagen.ingest import (FileTailSource, IngestDriver,
+                                                SocketIngestServer)
+    from flock_tpu_torch.queries.nexmark import get_query
+
+    if (args.file is None) == (args.listen is None):
+        print("error: pass exactly one of --file or --listen",
+              file=sys.stderr)
+        return 2
+    spec = get_query(args.query)
+    driver = IngestDriver(spec, args.seconds, f"q{args.query}",
+                          device=args.device)
+    t0 = time.perf_counter()
+    if args.listen is not None:
+        srv = SocketIngestServer(port=args.listen)
+        try:
+            host, port = srv.address
+            print(f"listening on {host}:{port} for {args.lines} fragments",
+                  flush=True)
+            results = driver.run(srv.lines(args.lines, timeout_s=args.timeout))
+        finally:
+            srv.close()
+    else:
+        results = driver.run(FileTailSource(args.file, n_lines=args.lines,
+                                            timeout_s=args.timeout))
+    total = 0
+    for r in results:
+        total += len(next(iter(r.columns.values()))) if r.columns else 0
+        _print_window(r.tag, r.columns, spec.schema, args.show)
+    print(f"q{args.query} ingest: {len(results)} windows, {total} output "
+          f"rows; elapsed {time.perf_counter() - t0:.2f}s")
+    return 0
+
+
+def cmd_produce(args) -> int:
+    """Produce a fragment stream from the generator (the source-function
+    side): write line-JSON fragments to a file or a socket endpoint."""
+    from flock_tpu_torch.datagen.ingest import fragment_lines, send_fragments
+    from flock_tpu_torch.queries.nexmark import get_query
+    from flock_tpu_torch.runtime.stream import generate_epochs
+    from flock_tpu_torch.runtime.tables import window_relations
+
+    spec = get_query(args.query)
+    epochs = generate_epochs(args.seconds, args.eps, args.generators)
+    lines = fragment_lines(epochs, f"q{args.query}", granule=args.granule,
+                           relations=window_relations(spec.relations))
+    if args.connect:
+        host, _, port = args.connect.rpartition(":")
+        send_fragments((host or "127.0.0.1", int(port)), lines)
+        print(f"sent {len(lines)} fragments to {args.connect}")
+    else:
+        with open(args.file, "a") as f:
+            for line in lines:
+                f.write(line + "\n")
+        print(f"appended {len(lines)} fragments to {args.file}")
+    return 0
+
+
 def main(argv=None) -> int:
     from flock_tpu_torch.config import CONFIG
 
@@ -328,9 +397,35 @@ def main(argv=None) -> int:
     fq.add_argument("--show", type=int, default=0)
     fq.set_defaults(fn=cmd_fsql)
 
+    ig = sub.add_parser("ingest", parents=[dev],
+                        help="run a query over an external fragment stream "
+                        "(socket or tailed file)")
+    ig.add_argument("-q", "--query", type=int, default=2)
+    ig.add_argument("-s", "--seconds", type=int, default=2)
+    ig.add_argument("--file", default=None, help="tail this fragment log")
+    ig.add_argument("--listen", type=int, default=None,
+                    help="TCP port to listen on (0 = ephemeral)")
+    ig.add_argument("--lines", type=int, required=True,
+                    help="number of fragment lines to consume")
+    ig.add_argument("--timeout", type=float, default=60.0)
+    ig.add_argument("--show", type=int, default=0)
+    ig.set_defaults(fn=cmd_ingest)
+
+    pr = sub.add_parser("produce", help="emit generator fragments to a "
+                        "file or socket (the source-function side)")
+    pr.add_argument("-q", "--query", type=int, default=2)
+    pr.add_argument("-s", "--seconds", type=int, default=2)
+    pr.add_argument("-e", "--eps", type=int, default=1_000)
+    pr.add_argument("-g", "--generators", type=int, default=1)
+    pr.add_argument("--granule", type=int, default=1024)
+    pr.add_argument("--file", default=None)
+    pr.add_argument("--connect", default=None, help="HOST:PORT to send to")
+    pr.set_defaults(fn=cmd_produce, device="cpu")
+
     args = ap.parse_args(argv)
     # before any data is made (and outside fsql's REPL error handler): no
-    # card and no --device cpu raises (explain runs no query: plain Python)
+    # card and no --device cpu raises (explain and produce run no query:
+    # plain Python)
     args.device = resolve_device(args.device)
     return args.fn(args)
 

@@ -2,10 +2,11 @@
 
 Cut-down copy of ``flock_tpu/native/__init__.py`` for the port: the NEXMark
 and YSB generators (``flockgen.cpp``), the window staging pass
-(``stage.cpp``), the per-epoch session key statistics (``session.cpp``) and
-the LZ4 and Snappy payload codecs (``codec.cpp``, ``snappy.cpp``), all
-copies of the reference package's sources.  Libraries compile on first
-use into ``flock_tpu_torch/build/``; a stale library (older than its source)
+(``stage.cpp``), the per-epoch session key statistics (``session.cpp``),
+the LZ4 and Snappy payload codecs (``codec.cpp``, ``snappy.cpp``) and the
+ingest path's line-JSON parser (``jsonl.cpp``), all copies of the reference
+package's sources.  Libraries compile on first use into
+``flock_tpu_torch/build/``; a stale library (older than its source)
 rebuilds.
 """
 
@@ -167,6 +168,31 @@ def snappy_decompress(data: bytes, out_size: int) -> bytes:
     return _decompress(_codec_lib("snappy.cpp", "libflocksnappy.so",
                                   "flock_snappy"), "flock_snappy", data,
                        out_size)
+
+
+def _jsonl_lib() -> ctypes.CDLL:
+    lib = _load("jsonl.cpp", "libflockjsonl.so")
+    if not getattr(lib, "_flock_argtypes", False):
+        lib.flock_jsonl_parse_ints.restype = ctypes.c_int64
+        lib.flock_jsonl_parse_ints.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64]
+        lib._flock_argtypes = True
+    return lib
+
+
+def jsonl_parse_int_columns(data: bytes, keys: list[str], max_rows: int):
+    """Parse newline-delimited JSON objects into int64 columns for ``keys``
+    (C-speed decode of the ingestion hot loop — transmute.rs:255-266
+    analogue).  Returns {key: np.int64 array} or None when the rows are not
+    flat integer objects (the caller takes the Python parser)."""
+    out = np.empty((len(keys), max_rows), np.int64)
+    n = _jsonl_lib().flock_jsonl_parse_ints(
+        data, len(data), "\n".join(keys).encode(), len(keys),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), max_rows)
+    if n < 0:
+        return None
+    return {k: out[i, :n].copy() for i, k in enumerate(keys)}
 
 
 def _session_lib() -> ctypes.CDLL:

@@ -30,9 +30,14 @@ session's chunk range from three dense tables (``kernels.lookup_join`` with
 a slotted build: kernel K3), rows outside their session's range turn
 invalid, and the plan aggregates by ``__session`` (kernel K2).
 
+``execute_stacked`` runs W windows of equal capacities (the reference's
+``lax.map`` over ``compile_plan``): every window's lowering is queued back
+to back and every window's flags are read in one host sync; only the
+windows that escaped rerun on the fallback.
+
 Every window is counted in ``utils.metrics.METRICS`` (windows, rows in,
-execute seconds), as in the reference.  ``execute_stacked`` is a later
-slice of the port.
+execute seconds), as in the reference, and every read of a window's flags
+in ``host_syncs``.
 """
 
 from __future__ import annotations
@@ -141,6 +146,7 @@ class LocalExecutor:
     device: torch.device | str | None = None  # None → cuda (raises without)
     side_input: dict | None = None  # q13's table; None → default_side_input()
     fallback_runs: int = 0
+    host_syncs: int = 0   # reads of windows' flags on the host
     _statics: dict | None = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
@@ -212,12 +218,12 @@ class LocalExecutor:
                          len(epoch_tables) * sum(c for _, c in caps))
 
     @contextlib.contextmanager
-    def _metered(self, rows_in: int):
-        """One window in ``METRICS``, under the reference's names: the
-        window, its ``rows_in`` (its capacities: host ints, no sync) and
-        the time of the block (``execute_s``)."""
+    def _metered(self, rows_in: int, windows: int = 1):
+        """``windows`` windows in ``METRICS``, under the reference's names:
+        the windows, their ``rows_in`` (their capacities: host ints, no
+        sync) and the time of the block (``execute_s``)."""
         q = f"q{self.spec.number}"
-        METRICS.count(f"{q}.windows")
+        METRICS.count(f"{q}.windows", windows)
         METRICS.count(f"{q}.rows_in", rows_in)
         with METRICS.timer(f"{q}.execute_s"):
             yield
@@ -231,15 +237,76 @@ class LocalExecutor:
             fn = compile_plan(self.spec.plan, agg_cap)
             out, overflow, escape = fn(tables)
             overflow, escape = torch.stack([overflow, escape]).tolist()
+            self.host_syncs += 1
             if escape:
                 self.fallback_runs += 1
                 out, overflow, _ = fn(tables, fallback=True)
                 overflow = bool(overflow)
+                self.host_syncs += 1
         if check_overflow and overflow:
             raise OverflowError(
                 f"q{self.spec.number}: static capacity exceeded "
                 f"({what()}, agg={agg_cap})")
         return out
+
+    def execute_stacked(self, windows: list[dict[str, Batch]],
+                        check_overflow: bool = True):
+        """Run W windows of equal capacities (each a dict of device Batches,
+        as ``execute_batches`` takes) — the reference's ``lax.map`` over
+        ``compile_plan``, which stacks the windows only because ``lax.map``
+        needs one array; here they stay as staged.  Every window's lowering
+        is queued back to back, and every window's overflow and escape
+        flags are read in ONE host sync; only the windows that escaped
+        rerun on the fallback lowering (each counted in ``fallback_runs``,
+        their flags read in one more sync).  The aggregate capacity is the
+        reference's: the first window's largest capacity plus the span
+        margin, what ``execute_batches`` takes for each window.
+
+        Returns (a Batch whose columns and ``valid`` carry a leading W axis,
+        a [W] bool overflow tensor); raises OverflowError when any flag is
+        set and ``check_overflow``.  An escaped window's fallback output
+        has the clean output's columns and capacity, as the reference's
+        ``lax.cond`` forces its two branches to (the fallback lowering keeps
+        every node's capacity; ``torch.stack`` raises if one ever differs,
+        so no row is cut)."""
+        caps = [sorted((r, b.capacity) for r, b in w.items())
+                for w in windows]
+        if any(c != caps[0] for c in caps):
+            raise ValueError(f"stacked windows need equal capacities: {caps}")
+        agg_cap = self.agg_capacity or (
+            max(windows[0][r].capacity for r in window_relations(windows[0]))
+            + CONFIG.agg_span_margin)
+        statics = self.statics()
+        fn = compile_plan(self.spec.plan, agg_cap)
+        with self._metered(len(windows) * sum(c for _, c in caps[0]),
+                           len(windows)):
+            runs = [fn({**statics, **w}) for w in windows]
+            flags = torch.stack([f for _, ovf, esc in runs
+                                 for f in (ovf, esc)]).tolist()
+            self.host_syncs += 1
+            outs = [out for out, _, _ in runs]
+            overflow = flags[0::2]
+            escaped = [i for i, esc in enumerate(flags[1::2]) if esc]
+            reruns = []
+            for i in escaped:
+                self.fallback_runs += 1
+                outs[i], ovf, _ = fn({**statics, **windows[i]},
+                                     fallback=True)
+                reruns.append(ovf)
+            if reruns:
+                for i, ovf in zip(escaped, torch.stack(reruns).tolist()):
+                    overflow[i] = ovf
+                self.host_syncs += 1
+            stacked = Batch(
+                {c: torch.stack([o.columns[c] for o in outs])
+                 for c in outs[0].columns},
+                torch.stack([o.valid for o in outs]))
+        if check_overflow and any(overflow):
+            raise OverflowError(
+                f"q{self.spec.number}: static capacity exceeded in stacked "
+                f"windows {[i for i, o in enumerate(overflow) if o]} "
+                f"(caps={caps[0]}, agg={agg_cap})")
+        return stacked, torch.tensor(overflow, device=self.device)
 
     def execute_window(self, tables: dict[str, dict[str, np.ndarray]],
                        capacities: dict[str, int] | None = None) -> Batch:
@@ -293,6 +360,7 @@ class LocalExecutor:
                 out, overflow = _run_plan_consts_fast(
                     plan, agg_capacity, chunks, names, vals.tolist())
                 overflow = bool(overflow)
+                self.host_syncs += 1
             if overflow:
                 raise OverflowError(
                     f"q{self.spec.number}: const-epoch capacity exceeded "

@@ -1,6 +1,6 @@
 """Payload wire format: serialized, compressed columnar fragments — copy of
 ``flock_tpu/runtime/payload.py`` (``FragmentId``, ``Payload``, ``encode``,
-``decode`` and the five codecs).  The bytes are the
+``decode``, ``to_fragments`` and the five codecs).  The bytes are the
 reference's, so either engine decodes the other's payloads.
 
 Reference counterpart: flock/src/runtime/payload.rs — Arrow-Flight frames,
@@ -35,6 +35,9 @@ import numpy as np
 CODECS = ("zstd", "zlib", "lz4", "snappy", "none")
 # persistence codec (encoding.rs Encoding analogue), the reference's default
 DEFAULT_CODEC = "zstd"
+# rows per fragment of ``to_fragments`` (the reference's
+# ``CONFIG.sync_granule``, the payload granule of flock.toml:59-61)
+SYNC_GRANULE = 74_304
 
 
 def _default_codec() -> str:
@@ -148,3 +151,21 @@ def decode(data: bytes) -> Payload:
         metadata=header["metadata"],
     )
 
+
+def to_fragments(cols: dict[str, np.ndarray], qid: str,
+                 granule: int = SYNC_GRANULE,
+                 shuffle_id: int = 0, metadata: dict | None = None
+                 ) -> list[Payload]:
+    """Slice a window's columns into granule-sized fragments (the payload
+    granularity analogue, flock.toml:59-61)."""
+    n = len(next(iter(cols.values()))) if cols else 0
+    seq_len = max(1, -(-n // granule))
+    out = []
+    for i in range(seq_len):
+        sl = slice(i * granule, min((i + 1) * granule, n))
+        out.append(Payload(
+            fragment=FragmentId(qid, i, seq_len, shuffle_id),
+            columns={k: v[sl] for k, v in cols.items()},
+            metadata=dict(metadata or {}),
+        ))
+    return out

@@ -1,5 +1,6 @@
 """State backends: checkpoint / recovery for window fragments — copy of
-``flock_tpu/runtime/state.py`` (``StateBackend`` and ``FileStateBackend``).
+``flock_tpu/runtime/state.py`` (``StateBackend``, ``MemoryStateBackend`` and
+``FileStateBackend``).
 
 Reference counterpart: flock/src/state/{mod.rs,s3.rs} — a ``StateBackend``
 trait with S3 (bucket=qid, key=``<plan_idx>/<shuffle_id>/<seq_num>``), EFS
@@ -7,10 +8,13 @@ and no-op HashMap implementations.  Producers write every fragment in
 parallel with sending it; a starving consumer diffs stored keys against its
 arrival bitmap to pull missing fragments (actor.rs:186-234).
 
-Here: ``FileStateBackend`` (filesystem standing in for S3; key layout
-identical).  The session tiers checkpoint their open windows through it
-(``SessionState.to_payloads``, ``device_session.to_payloads``) and a
-replacement driver resumes from it.
+Here: ``MemoryStateBackend`` (HashMap analogue) and ``FileStateBackend``
+(filesystem standing in for S3; key layout identical).  The session tiers
+checkpoint their open windows through it (``SessionState.to_payloads``,
+``device_session.to_payloads``) and a replacement driver resumes from it; a
+window's fragments (``payload.to_fragments``) checkpoint there before
+delivery, and a consumer whose arena misses some pulls them back
+(lost-fragment recovery).
 """
 
 from __future__ import annotations
@@ -31,6 +35,27 @@ class StateBackend:
 
     def list_seqs(self, qid: str, plan_idx: int, shuffle_id: int) -> list[int]:
         raise NotImplementedError
+
+
+@dataclass
+class MemoryStateBackend(StateBackend):
+    store: dict = field(default_factory=dict)
+
+    def _key(self, qid, plan_idx, shuffle_id, seq_num):
+        return (qid, plan_idx, shuffle_id, seq_num)
+
+    def write(self, plan_idx: int, payload: Payload) -> None:
+        f = payload.fragment
+        self.store[self._key(f.qid, plan_idx, f.shuffle_id, f.seq_num)] = \
+            encode(payload)
+
+    def read(self, qid, plan_idx, shuffle_id, seq_num):
+        data = self.store.get(self._key(qid, plan_idx, shuffle_id, seq_num))
+        return decode(data) if data is not None else None
+
+    def list_seqs(self, qid, plan_idx, shuffle_id):
+        return sorted(s for (q, p, sh, s) in self.store
+                      if (q, p, sh) == (qid, plan_idx, shuffle_id))
 
 
 def _default_state_dir() -> str:

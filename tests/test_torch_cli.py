@@ -1,13 +1,17 @@
 """The port's CLI (``python -m flock_tpu_torch.cli``) against flock_tpu's:
 ``nexmark run`` (single-card and ``--distributed``), ``ysb run``, ``fsql``
-(one-shot and REPL) with ``--device cpu`` and ``explain`` print the
+(one-shot and REPL), ``ingest`` (``--file``, ``--listen``) with ``--device
+cpu``, ``produce`` (``--file``, ``--connect``) and ``explain`` print the
 reference's lines for the same arguments, times left out; the sinks, the
 metrics registry and the executor's records (tests/test_runtime_aux.py's
 tests, against the port's modules) (PyTorch port, CPU)."""
 
 import builtins
+import json
 import re
+import socket
 import tempfile
+import threading
 
 import numpy as np
 import pytest
@@ -20,6 +24,7 @@ from flock_tpu.runtime.stream import run_nexmark as ref_run_nexmark
 from flock_tpu.utils.metrics import METRICS as REF_METRICS
 from flock_tpu_torch import cli
 from flock_tpu_torch.batch import Schema
+from flock_tpu_torch.datagen.ingest import SocketIngestServer, send_fragments
 from flock_tpu_torch.queries.nexmark import get_query
 from flock_tpu_torch.runtime.executor import LocalExecutor
 from flock_tpu_torch.runtime.sink import FileSink, MemorySink, make_sink
@@ -142,15 +147,116 @@ def test_nexmark_trace_writes_a_chrome_trace(monkeypatch, tmp_path, capsys):
     assert (where / "trace.json").stat().st_size > 0
 
 
-@pytest.mark.parametrize("argv", [
-    [cmd] for cmd in ("bench", "ingest", "produce")])
+@pytest.mark.parametrize("argv", [["bench"]])
 def test_unported_subcommands_and_flags_are_refused(argv, capsys):
-    """What needs ingestion or the bench is not registered: argparse
+    """The bench (the reference's JAX harness) is not registered: argparse
     refuses it by name."""
     with pytest.raises(SystemExit) as e:
         cli.main(argv + ["--device", "cpu"])
     assert e.value.code == 2
     assert argv[-1].split("=")[0] in capsys.readouterr().err
+
+
+# -- ingest and produce -------------------------------------------------------
+
+_ADDRESS = re.compile(r"127\.0\.0\.1:\d+")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.parametrize("q,size", [(2, ["-s", "2", "-e", "3000"]),
+                                    (3, ["-s", "3", "-e", "2000",
+                                         "--granule", "100"])])
+def test_produce_file_writes_the_reference_fragments(q, size, tmp_path,
+                                                     capsys):
+    """``produce --file`` appends the reference's fragment lines, byte for
+    byte, and prints its line."""
+    argv = ["produce", "-q", str(q), *size]
+    mine, theirs = tmp_path / "port.jsonl", tmp_path / "ref.jsonl"
+    got = _lines(cli.main, argv + ["--file", str(mine)], capsys)
+    want = _lines(ref_cli.main, argv + ["--file", str(theirs)], capsys)
+    assert got == [ln.replace("ref.jsonl", "port.jsonl") for ln in want]
+    assert mine.read_bytes() == theirs.read_bytes()
+    assert got[0].startswith("appended ")
+
+
+def test_produce_connect_sends_the_reference_fragments(capsys):
+    """``produce --connect`` sends the reference's lines to a listener."""
+    srv = SocketIngestServer()
+    try:
+        host, port = srv.address
+        argv = ["produce", "-q", "4", "-s", "2", "-e", "2000", "--connect",
+                f"{host}:{port}"]
+        got = _lines(cli.main, argv, capsys)
+        want = _lines(ref_cli.main, argv, capsys)
+        n = int(got[0].split()[1])
+        received = list(srv.lines(2 * n, timeout_s=60))
+    finally:
+        srv.close()
+    assert got == want == [f"sent {n} fragments to {host}:{port}"]
+    assert received[:n] == received[n:]
+    assert json.loads(received[0])["qid"] == "q4"
+
+
+@pytest.fixture(scope="module")
+def fragment_log(tmp_path_factory):
+    """q4's fragments of 3 s × 3,000 events/s in a file, as ``produce``
+    writes them."""
+    path = tmp_path_factory.mktemp("ingest") / "q4.jsonl"
+    assert cli.main(["produce", "-q", "4", "-s", "3", "-e", "3000",
+                     "--granule", "256", "--file", str(path)]) == 0
+    return path
+
+
+def test_ingest_file_prints_the_reference_lines(fragment_log, capsys):
+    n = len(fragment_log.read_text().splitlines())
+    argv = ["ingest", "-q", "4", "-s", "3", "--file", str(fragment_log),
+            "--lines", str(n), "--show", "2"]
+    got = _lines(cli.main, argv + ["--device", "cpu"], capsys)
+    want = _lines(ref_cli.main, argv, capsys)
+    assert got == want
+    assert got[-1] == "q4 ingest: 3 windows, 15 output rows; elapsed <t>"
+
+
+def test_ingest_listen_prints_the_reference_lines(fragment_log, capsys):
+    """``ingest --listen`` on a port a producer thread sends the log to
+    (the producer retries its connect until the listener is up); the
+    lines equal the reference's, the address left out."""
+    lines = fragment_log.read_text().splitlines()
+
+    def run(main, extra):
+        port = _free_port()
+        producer = threading.Thread(
+            target=send_fragments, args=(("127.0.0.1", port), lines),
+            daemon=True)
+        producer.start()
+        out = _lines(main, ["ingest", "-q", "4", "-s", "3", "--listen",
+                            str(port), "--lines", str(len(lines)),
+                            "--timeout", "60", "--show", "1", *extra],
+                     capsys)
+        producer.join(30)
+        assert not producer.is_alive()
+        return [_ADDRESS.sub("<address>", ln) for ln in out]
+
+    got = run(cli.main, ["--device", "cpu"])
+    want = run(ref_cli.main, [])
+    assert got == want
+    assert got[0] == f"listening on <address> for {len(lines)} fragments"
+
+
+@pytest.mark.parametrize("source", [[], ["--file", "x", "--listen", "0"]])
+def test_ingest_takes_exactly_one_source(source, capsys):
+    argv = ["ingest", "--lines", "1", *source]
+    capsys.readouterr()
+    rc = cli.main(argv + ["--device", "cpu"])
+    got = capsys.readouterr()
+    assert rc == ref_cli.main(argv) == 2
+    want = capsys.readouterr()
+    assert (got.out, got.err) == (want.out, want.err)
 
 
 @pytest.mark.parametrize("argv", [

@@ -868,3 +868,97 @@ def test_mesh_across_cards_equals_one_card(dev):
         shards)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
+
+
+# -- slice 10: stacked windows, fragment recovery, ingestion -----------------
+
+
+@pytest.mark.parametrize("q", [4, 9])
+def test_execute_stacked_on_the_card_equals_cpu(dev, q):
+    """Four clean windows and a G=3 window stacked: the card's stacked
+    output equals the CPU's slot for slot, with one flag read for the
+    clean windows and one more for the escaped window's rerun."""
+    from flock_tpu_torch.runtime.executor import LocalExecutor
+    from flock_tpu_torch.runtime.tables import concat_relations
+
+    epochs = generate_epochs(4, 40_000)
+    dup = concat_relations(generate_epochs(10, 350, 3), ("auction", "bid"))
+    windows = [{r: e[r] for r in ("auction", "bid")} for e in epochs]
+    caps = {"auction": 8192, "bid": 65536}
+    outs = []
+    for device in (dev, "cpu"):
+        ex = LocalExecutor(get_query(q), device=device)
+        clean = ex.execute_stacked([ex.prepare_window(w, caps)
+                                    for w in windows])
+        mixed = ex.execute_stacked([ex.prepare_window(w, caps)
+                                    for w in (windows[0], dup, windows[1])])
+        outs.append((clean, mixed, ex.host_syncs, ex.fallback_runs))
+    (g_clean, g_mixed, *gn), (c_clean, c_mixed, *cn) = outs
+    assert gn == cn == [3, 1]
+    for (g, gov), (c, cov) in ((g_clean, c_clean), (g_mixed, c_mixed)):
+        assert torch.equal(gov.cpu(), cov)
+        assert torch.equal(g.valid.cpu(), c.valid)
+        for k in c.columns:
+            assert torch.equal(g.columns[k].cpu(), c.columns[k]), k
+
+
+def test_recovered_window_on_the_card_equals_cpu(dev, tmp_path):
+    """A q4 window checkpointed as fragments, one lost and pulled back
+    from the file backend: its rows on the card (single-card and 8
+    shards) equal the CPU's."""
+    from flock_tpu_torch.parallel.executor import DistributedExecutor
+    from flock_tpu_torch.runtime.arena import Arena, WindowStatus
+    from flock_tpu_torch.runtime.executor import (LocalExecutor,
+                                                  materialize_columns)
+    from flock_tpu_torch.runtime.payload import to_fragments
+    from flock_tpu_torch.runtime.state import FileStateBackend
+    from flock_tpu_torch.runtime.tables import concat_relations
+
+    window = concat_relations(generate_epochs(2, 200_000),
+                              ("auction", "bid"))
+    backend = FileStateBackend(root=str(tmp_path))
+    arena = Arena()
+    for rel in ("auction", "bid"):
+        frags = to_fragments(window[rel], f"rq-{rel}", granule=20_000)
+        for f in frags:
+            backend.write(0, f)
+        for f in frags[1:] + frags[:1]:
+            if f.fragment.seq_num != 2:
+                arena.collect(f)
+    for seq in arena.missing(("rq-bid", 0)):
+        assert arena.collect(backend.read("rq-bid", 0, 0, seq)) \
+            is WindowStatus.READY
+    tables = {rel: arena.take((f"rq-{rel}", 0)) for rel in ("auction", "bid")}
+    shards = [{rel: {k: v[i::8] for k, v in cols.items()}
+               for rel, cols in tables.items()} for i in range(8)]
+    got = []
+    for device in (dev, "cpu"):
+        ex = LocalExecutor(get_query(4), device=device)
+        dist = DistributedExecutor(get_query(4), 8, device=device)
+        got.append((ex.materialize(ex.execute_window(tables)),
+                    materialize_columns(get_query(4),
+                                        dist.execute_window(shards))))
+    (g1, g8), (c1, c8) = got
+    for k in c1:
+        np.testing.assert_array_equal(g1[k], c1[k])
+        np.testing.assert_array_equal(g8[k], c8[k])
+
+
+def test_ingest_q4_on_the_card_equals_cpu(dev):
+    """q4 over scrambled, duplicated fragment lines: the IngestDriver on
+    the card gives the CPU's rows, window for window."""
+    import random
+
+    from flock_tpu_torch.datagen.ingest import IngestDriver, fragment_lines
+
+    epochs = generate_epochs(3, 20_000)
+    lines = fragment_lines(epochs, "q4", granule=512,
+                           relations=("auction", "bid"))
+    random.Random(3).shuffle(lines)
+    lines += lines[:7]
+    got = IngestDriver(get_query(4), 3, "q4", device=dev).run(lines)
+    want = IngestDriver(get_query(4), 3, "q4", device="cpu").run(lines)
+    assert [r.tag for r in got] == [r.tag for r in want]
+    for g, w in zip(got, want):
+        for k in w.columns:
+            np.testing.assert_array_equal(g.columns[k], w.columns[k])

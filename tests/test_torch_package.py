@@ -58,7 +58,8 @@ def test_resolve_device(no_cuda):
 @pytest.mark.parametrize("entry", ["executor", "driver", "batch", "run",
                                    "cli", "sql", "mesh", "dist-executor",
                                    "dist-driver", "cli-distributed",
-                                   "cli-multihost"])
+                                   "cli-multihost", "ingest",
+                                   "cli-ingest"])
 def test_no_silent_cpu_fallback(no_cuda, entry):
     """Without CUDA, every entry point called with no device raises."""
     from flock_tpu_torch import cli
@@ -87,6 +88,12 @@ def test_no_silent_cpu_fallback(no_cuda, entry):
             DistributedExecutor(spec, 8)
         elif entry == "dist-driver":
             DistStreamDriver(spec, 2, 8)
+        elif entry == "ingest":
+            from flock_tpu_torch.datagen.ingest import IngestDriver
+
+            IngestDriver(spec, 2)
+        elif entry == "cli-ingest":
+            cli.main(["ingest", "--file", "never-read.jsonl", "--lines", "1"])
         elif entry in ("cli-distributed", "cli-multihost"):
             cli.main(["nexmark", "run", "-q", "4", "-s", "1", "-e", "100",
                       "--" + entry[4:]])
