@@ -87,7 +87,10 @@ and the script exits non-zero:
    ``fsql`` with SQL q4 over the bench stream as one window (its row
    count against ``numpy_q4``) and ``nexmark run -q 4 --metrics``; SQL q5
    (hopping) and q7 (tumbling) on the 15 s epochs and YSB's SQL on the
-   YSB window, against the hand plans' rows and numpy;
+   YSB window, against the hand plans' rows and numpy; nine aggregates by
+   auction (K2 in two launches a window) and the BETWEEN chain with nine
+   (unfused: no K1 launch) on the bench epochs, against numpy, their
+   launches exactly as predicted;
    The sharded executor (``flock_tpu_torch/parallel``), 8 shards on the
    card (``dist``, ``multihost``, ``dist windowed``, ``dist ysb``):
    ``hash32`` on the card bit for bit its CPU result on 4 M keys; the
@@ -131,7 +134,11 @@ and the script exits non-zero:
    q9, q6 and SQL q4 rerun the window with the duplicate-faithful
    fallback, SQL q4's rows equal to q4's — and q3 over that window with
    every person row repeated, which reruns too;
-5. the card's name and power limit, then one JSON result line.
+5. the benchmark harness (``flock_tpu_torch/tools/bench.py``) at its
+   ``--all`` sizes from the bench size, 2 repeats: fifteen records
+   (compute-only, feed-inclusive and stacked rows/s), none failed, q4's
+   rows and windows those of the q4 run above;
+6. the card's name and power limit, then one JSON result line.
 
 Each phase prints its seconds (a ``phase <name>`` line).
 
@@ -153,6 +160,8 @@ import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from flock_tpu_torch.tools.bench import EpochFeed, best_s, cuda_ms  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth.  Every kernel here moves a few
 # bytes per row and does a few integer operations on them: bytes bound them.
@@ -321,6 +330,26 @@ SQL_YSB = ("SELECT campaign_id, Count(*) AS count FROM ad_event INNER JOIN "
            "campaign ON ad_id = c_ad_id WHERE event_type = 'view' GROUP BY "
            "campaign_id;")
 
+# more aggregates than one kernel launch takes: nine by one int32 key
+# (K2 holds eight a launch: two launches), and the BETWEEN chain with nine
+# (K1 takes eight: it lowers unfused, the join slotting on K2 and gathering
+# on K3, the aggregate's two K2 launches); tests/test_torch_sql.py's texts
+MANY_AGGS_SQL = (
+    "SELECT auction, Max(price), Min(price), Sum(price), Max(b_date_time), "
+    "Min(b_date_time), Max(bidder), Min(bidder), Sum(bidder), "
+    "Sum(b_date_time) FROM bid GROUP BY auction")
+MANY_AGGS_JOIN_SQL = (
+    "SELECT a_id, Max(price), Min(price), Sum(price), Max(bidder), "
+    "Min(bidder), Sum(bidder), Max(b_date_time), Min(b_date_time), "
+    "Sum(b_date_time) FROM auction INNER JOIN bid ON a_id = auction WHERE "
+    "b_date_time BETWEEN a_date_time AND expires GROUP BY a_id")
+# their launches a window
+MANY_AGGS_LAUNCHES = {
+    "sql-many-aggs": {"join_agg": 0, "dense_agg": 2, "gather": 0},
+    "sql-many-aggs-join": {"join_agg": 0, "dense_agg": 3, "gather": 1}}
+QUERY_KERNELS.update({"sql-many-aggs": ("dense_agg",),
+                      "sql-many-aggs-join": ("dense_agg", "gather")})
+
 # the SQL runs' timing depth (compute-only passes, feed-inclusive passes,
 # profiled): their rows are held against the hand plans' from the same run,
 # which needs no timing
@@ -350,37 +379,6 @@ def counters() -> dict:
 
     return {"join_agg": join_aggregate, "dense_agg": dense_agg,
             "gather": gather}
-
-
-# a call this slow (ms) is timed over SLOW_REPS runs: its median needs
-# fewer, and fifteen of the plain K2 over 33.5 M rows take 17 s
-SLOW_MS, SLOW_REPS = 50.0, 3
-
-
-def cuda_ms(fn, reps: int = 15, warmup: int = 2) -> float:
-    """Median time of ``fn()`` on the device's timeline over ``reps`` runs
-    (CUDA events; ``SLOW_REPS`` where a warm-up call took ``SLOW_MS`` or
-    more): device work plus the gaps where the device waits for the host
-    to launch the next operation."""
-    for _ in range(warmup):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        if start.elapsed_time(end) >= SLOW_MS:
-            reps = min(reps, SLOW_REPS)
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 @dataclasses.dataclass
@@ -1640,9 +1638,12 @@ def no_plain_on_card(fused_partial: bool = False):
     caller: the partial of a fused join-aggregate's unfused branch in a
     sharded fallback lowering (``_lower_fused_dist``), the reference's own
     scatter (``allow_blocked=False``)."""
-    from flock_tpu_torch.ops import kernels
+    from flock_tpu_torch.ops import dense_agg, kernels
 
-    plain = kernels.dense_agg_plain
+    # the scatter path's name and K2's wrapper's (which reaches it only on
+    # the CPU, per launch)
+    owners = (kernels, dense_agg)
+    plains = [m.dense_agg_plain for m in owners]
 
     def caller() -> str:
         f = sys._getframe(2)
@@ -1651,17 +1652,21 @@ def no_plain_on_card(fused_partial: bool = False):
             f = f.f_back
         return f.f_code.co_name
 
-    def guarded(keys, *args, **kw):
-        if keys.is_cuda and not (fused_partial
-                                 and caller() == "_lower_fused_dist"):
-            raise AssertionError("a card tensor reached dense_agg_plain")
-        return plain(keys, *args, **kw)
+    def guard(plain):
+        def guarded(keys, *args, **kw):
+            if keys.is_cuda and not (fused_partial
+                                     and caller() == "_lower_fused_dist"):
+                raise AssertionError("a card tensor reached dense_agg_plain")
+            return plain(keys, *args, **kw)
+        return guarded
 
-    kernels.dense_agg_plain = guarded
+    for m, plain in zip(owners, plains):
+        m.dense_agg_plain = guard(plain)
     try:
         yield
     finally:
-        kernels.dense_agg_plain = plain
+        for m, plain in zip(owners, plains):
+            m.dense_agg_plain = plain
 
 
 @contextlib.contextmanager
@@ -1749,31 +1754,11 @@ class Path:
 
 def epoch_path(driver, epochs) -> Path:
     """The range windows' path: every epoch staged once at StreamDriver's
-    per-epoch capacities, each window through ``execute_epochs``."""
-    caps = driver.epoch_caps(epochs)
-    ranges = [[t for t in rng if t < len(epochs)]
-              for _, rng in driver.epoch_ranges(epochs)]
-
-    def stage_one(ex, e):
-        return {r: ex.stage_chunk(e[r], c) for r, c in caps.items()}
-
-    def run(ex, staged, i, check=True):
-        return ex.execute_epochs([staged[t] for t in ranges[i]],
-                                 check_overflow=check)
-
-    def feed(ex):
-        staged = []
-        for t, e in enumerate(epochs):
-            staged.append(stage_one(ex, e))
-            for i, rng in enumerate(ranges):
-                if rng[-1] == t:
-                    run(ex, staged, i, False)
-
-    single = [rng[0] for rng in ranges] \
-        if all(len(rng) == 1 for rng in ranges) else None
-    return Path(driver.windows(epochs),
-                lambda ex: [stage_one(ex, e) for e in epochs], run, feed,
-                single)
+    per-epoch capacities, each window through ``execute_epochs``
+    (``bench.EpochFeed``, the harness's own feed)."""
+    feed = EpochFeed(driver, epochs)
+    return Path(driver.windows(epochs), feed.stage, feed.run, feed.feed,
+                feed.single)
 
 
 def window_path(windows, caps_of) -> Path:
@@ -1916,12 +1901,7 @@ def phase_query(label: str, spec, main, path_of, numpy_fn, seconds: int,
         for i in range(len(path.windows)):
             path.run(ex, staged, i, False)
 
-    best = float("inf")
-    for _ in range(n_compute):
-        t0 = time.perf_counter()
-        compute()
-        torch.cuda.synchronize()
-        best = min(best, time.perf_counter() - t0)
+    best = best_s(compute, n_compute)
     # where the device time goes in one compute-only pass; the idle share
     # sets the device's busy time against the unprofiled compute time
     events = profile(compute) if profiled else None
@@ -1948,12 +1928,7 @@ def phase_query(label: str, spec, main, path_of, numpy_fn, seconds: int,
     print(f"{label} profile: " + json.dumps({
         "windows": len(path.windows), "compute_ms": best * 1e3,
         **profile_summary(events, best * 1e3), **extra}), flush=True)
-    best_incl = float("inf")
-    for _ in range(n_feed):
-        t0 = time.perf_counter()
-        path.feed(ex)
-        torch.cuda.synchronize()
-        best_incl = min(best_incl, time.perf_counter() - t0)
+    best_incl = best_s(lambda: path.feed(ex), n_feed)
     rec = {"query": label, "seconds": seconds, "eps": eps,
            "windows": len(path.windows), "rows_in": rows_in,
            "rows_out": out_rows, "gen_s": gen_s,
@@ -1965,6 +1940,7 @@ def phase_query(label: str, spec, main, path_of, numpy_fn, seconds: int,
     print(f"{label}: " + json.dumps(rec), flush=True)
     RESULTS[label] = results
     RECORDS[label] = {
+        "rows_in": rows_in, "windows": len(path.windows),
         "compute_ms": best * 1e3, "feed_incl_ms": best_incl * 1e3,
         "idle_share": profile_summary(events, best * 1e3)["idle_share"],
         "aten_ops": extra["aten_ops"],
@@ -2245,12 +2221,7 @@ def phase_q11(label: str, epochs: list, seconds: int, eps: int,
         def compute():
             return timed.run(epochs, prestaged=staged)
 
-        best = float("inf")
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            compute()
-            torch.cuda.synchronize()
-            best = min(best, time.perf_counter() - t0)
+        best = best_s(compute, reps)
         events = profile(compute, sessions=min(reps, 3))
         wrappers = counters()
         before = {k: w.launches for k, w in wrappers.items()}
@@ -2270,21 +2241,15 @@ def phase_q11(label: str, epochs: list, seconds: int, eps: int,
             preset = device_session.CAP_OUT
             device_session.CAP_OUT = preset << warm.retries
             try:
-                t0 = time.perf_counter()
-                compute()
-                torch.cuda.synchronize()
-                no_rollback_s = time.perf_counter() - t0
+                no_rollback_s = best_s(compute, 1)
             finally:
                 device_session.CAP_OUT = preset
             if timed.session_stats.retries:
                 raise AssertionError(f"{label}: a preset buffer rolled back")
         del staged
-        best_incl = float("inf")
-        for _ in range(max(reps - 1, 1)):
-            t0 = time.perf_counter()
-            StreamDriver(spec, seconds, device="cuda").run(epochs)
-            torch.cuda.synchronize()
-            best_incl = min(best_incl, time.perf_counter() - t0)
+        best_incl = best_s(
+            lambda: StreamDriver(spec, seconds, device="cuda").run(epochs),
+            max(reps - 1, 1))
     rec = {"query": label, "tier": "generic" if generic else "device",
            "seconds": seconds, "eps": eps, "rows_in": rows_in,
            "rows_out": len(got["bidder"]), "emissions": len(results),
@@ -2481,6 +2446,54 @@ def numpy_bidders(t: dict) -> dict:
             "end_time": np.maximum.reduceat(ts, idx)}
 
 
+def _grouped(key_name: str, keys, aggs: dict) -> dict:
+    """Per distinct key, each of ``aggs`` (output name → (values,
+    ``np.maximum``/``np.minimum``/``np.add``)) over its rows, in int64."""
+    order = np.argsort(keys, kind="stable")
+    k = keys[order]
+    first = np.ones(len(k), bool)
+    first[1:] = k[1:] != k[:-1]
+    idx = np.flatnonzero(first)
+    out = {key_name: k[idx]}
+    for name, (v, op) in aggs.items():
+        out[name] = op.reduceat(v[order].astype(np.int64), idx) \
+            if len(idx) else np.zeros(0, np.int64)
+    return out
+
+
+def _nine_aggs(cols: dict) -> dict:
+    """The texts' nine aggregates; the sum of ``b_date_time`` adds the
+    device's relative milliseconds (``batch.TS_BASE`` off each), as the
+    reference does: only a min or max is a timestamp again at the sink."""
+    from flock_tpu_torch.batch import TS_BASE
+
+    mx, mn, add = np.maximum, np.minimum, np.add
+    return {"max_price": (cols["price"], mx), "min_price": (cols["price"], mn),
+            "sum_price": (cols["price"], add),
+            "max_b_date_time": (cols["b_date_time"], mx),
+            "min_b_date_time": (cols["b_date_time"], mn),
+            "max_bidder": (cols["bidder"], mx),
+            "min_bidder": (cols["bidder"], mn),
+            "sum_bidder": (cols["bidder"], add),
+            "sum_b_date_time": (cols["b_date_time"] - TS_BASE, add)}
+
+
+def numpy_many_aggs(t: dict) -> dict:
+    """Independent MANY_AGGS_SQL: the nine aggregates of the bids per
+    auction."""
+    bid = t["bid"]
+    return _grouped("auction", bid["auction"], _nine_aggs(bid))
+
+
+def numpy_many_aggs_join(t: dict) -> dict:
+    """Independent MANY_AGGS_JOIN_SQL: the nine aggregates per auction id
+    over the bids inside an interval of an auction row with that id."""
+    auction, bid = t["auction"], t["bid"]
+    bi, ai = _winning_pairs(auction, bid)
+    return _grouped("a_id", auction["a_id"][ai],
+                    _nine_aggs({c: bid[c][bi] for c in bid}))
+
+
 def _close_row_set(got: dict, want: dict, names, what: str) -> None:
     """SQL q6's comparison, tests/test_sql.py's: the first column (the
     sellers) exact, the second (the averages) to rtol 1e-9 (ROW_NUMBER's
@@ -2537,9 +2550,14 @@ def phase_sql(epochs: list, gen_s: float, card_line: str,
     whose hand plans ran at other windows, run theirs here), SQL q6's to
     the reference test's tolerance.  q4's, q9's and q13's numbers are
     printed beside their hand plans'; q4 and q9 must make the same
-    launches (K1 kept)."""
+    launches (K1 kept).  Then the texts with more aggregates than a kernel
+    launch takes (``MANY_AGGS_SQL``: two K2 launches a window;
+    ``MANY_AGGS_JOIN_SQL``: unfused, no K1 launch), their rows against
+    numpy's and their launches exactly ``MANY_AGGS_LAUNCHES`` a window."""
     from flock_tpu_torch.queries.nexmark import get_query
     from flock_tpu_torch.runtime.stream import StreamDriver
+    from flock_tpu_torch.sql.catalog import nexmark_catalog
+    from flock_tpu_torch.sql.lower import sql_to_spec
 
     for q in (4, 9, 13, 0, 1, 2, 10, 3, 5, 7, 8, 6, 11):
         label = f"sql-q{q}"
@@ -2571,6 +2589,21 @@ def phase_sql(epochs: list, gen_s: float, card_line: str,
         del RESULTS[label]
         print(f"{label}: rows equal the hand plan's and the numpy "
               "version's", flush=True)
+    for label, sql, numpy_fn in (
+            ("sql-many-aggs", MANY_AGGS_SQL, numpy_many_aggs),
+            ("sql-many-aggs-join", MANY_AGGS_JOIN_SQL,
+             numpy_many_aggs_join)):
+        launches[label] = phase_stream(
+            label, sql_to_spec(sql, nexmark_catalog()), epochs,
+            BENCH_SECONDS, BENCH_EPS, gen_s, card_line, numpy_fn=numpy_fn,
+            cpu_check=False, depth=SQL_DEPTH)
+        windows = len(RESULTS.pop(label))
+        want = {k: windows * v for k, v in MANY_AGGS_LAUNCHES[label].items()}
+        if launches[label] != want:
+            raise AssertionError(f"{label}: launches {launches[label]}, "
+                                 f"predicted {want}")
+        print(f"{label}: rows equal the numpy version's, launches "
+              f"{launches[label]}", flush=True)
 
 
 def float_key_join(epochs: list, card_line: str) -> None:
@@ -2822,12 +2855,7 @@ def phase_dist(label: str, make, parts, check, n: int,
     def compute():
         driver.run(parts, prestaged=pre)
 
-    best = float("inf")
-    for _ in range(3):
-        t0 = time.perf_counter()
-        compute()
-        torch.cuda.synchronize()
-        best = min(best, time.perf_counter() - t0)
+    best = best_s(compute)
     rec = {"query": label, "shards": n, "seconds": seconds, "eps": eps,
            "windows": windows,
            "rows_out": sum(len(r.columns[names[0]]) for r in results),
@@ -2852,10 +2880,7 @@ def phase_dist(label: str, make, parts, check, n: int,
         rec["kernel_launches_per_pass"] = sum(
             w.launches - before[k] for k, w in wrappers.items()) / len(calls)
         del pre
-        t0 = time.perf_counter()
-        make().run(parts)
-        torch.cuda.synchronize()
-        rec["feed_incl_s"] = time.perf_counter() - t0
+        rec["feed_incl_s"] = best_s(lambda: make().run(parts), 1)
     print(f"{label}: " + json.dumps(rec, default=str), flush=True)
     RECORDS[label] = rec
     return launches, results
@@ -3425,17 +3450,6 @@ def phase_recovery(epochs: list, card_line: str, launches: dict) -> None:
         "card": card_line}), flush=True)
 
 
-def _best_s(fn, reps: int = 3) -> float:
-    """The least wall time of ``fn()`` to a synchronised card."""
-    best = float("inf")
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        best = min(best, time.perf_counter() - t0)
-    return best
-
-
 def _stacked_equals_per_window(label: str, ex, staged, out) -> list:
     """Window i of a stacked output equals ``execute_batches`` on window
     i, slot for slot; returns the per-window outputs' rows."""
@@ -3492,8 +3506,8 @@ def phase_stacked(epochs: list, card_line: str, launches: dict) -> None:
         for got, res in zip(rows, RESULTS[f"q{q}"]):
             _same_rows(got, res.columns, spec.schema.names,
                        f"{label} {res.tag} vs the bench run")
-        stacked_s = _best_s(lambda: ex.execute_stacked(staged))
-        per_window_s = _best_s(lambda: [ex.execute_batches(w)
+        stacked_s = best_s(lambda: ex.execute_stacked(staged))
+        per_window_s = best_s(lambda: [ex.execute_batches(w)
                                         for w in staged])
         print(f"{label}: " + json.dumps({
             "windows": len(staged), "caps": caps,
@@ -3536,6 +3550,37 @@ def phase_stacked(epochs: list, card_line: str, launches: dict) -> None:
             "launches": launches[label], "host_syncs": syncs,
             "fallback_runs": runs, "escaped": [1], "card": card_line}),
             flush=True)
+
+
+def phase_bench(card_line: str) -> None:
+    """The harness (``flock_tpu_torch/tools/bench.py``) at its ``--all``
+    sizes from the bench size (4 s x 4 M events/s), 2 repeats, into an
+    artifact in a temporary directory; each record printed.  No record may
+    hold an error, and q4's rows and windows must be the ``q4`` run's on
+    the same stream."""
+    import tempfile
+
+    from flock_tpu_torch.tools import bench
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "bench.json")
+        rc = bench.main(["--all", "--seconds", str(BENCH_SECONDS), "--eps",
+                         str(BENCH_EPS), "--repeats", "2", "--out", out])
+        with open(out) as f:
+            doc = json.load(f)
+    for r in doc["results"]:
+        name = r["query"] if r["query"] == "ysb" else f"q{r['query']}"
+        print(f"bench {name}: " + json.dumps({**r, "card": card_line}),
+              flush=True)
+    failed = [r["query"] for r in doc["results"] if "error" in r]
+    if rc or failed or len(doc["results"]) != 15:
+        raise AssertionError(f"bench: rc {rc}, failed {failed}, "
+                             f"{len(doc['results'])} records")
+    q4 = next(r for r in doc["results"] if r["query"] == 4)
+    mine = (q4["rows_in"], q4["windows"])
+    if mine != (RECORDS["q4"]["rows_in"], RECORDS["q4"]["windows"]):
+        raise AssertionError(f"bench q4: rows and windows {mine}, the q4 "
+                             f"run's {RECORDS['q4']}")
 
 
 def kernels_line(cases: list[dict], launches: dict[str, dict]) -> dict:
@@ -3690,6 +3735,8 @@ def main() -> int:
     print(json.dumps(kernels_line(cases, launches)), flush=True)
     with phase_seconds("duplicates"):
         phase_duplicates()
+    with phase_seconds("bench"):
+        phase_bench(card_line)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,9 +14,12 @@ analogue, flock-cli/src/{main,nexmark,ysb}.rs):
                [--timeout S] [--show N] [--device D]
   produce      (--file PATH | --connect HOST:PORT) [-q N] [-s SECONDS]
                [-e EVENTS_PER_SEC] [-g GENERATORS] [--granule ROWS]
+  bench        [--query N] [--seconds SECONDS] [--eps EVENTS_PER_SEC]
+               [--device D]
 
     python -m flock_tpu_torch.cli nexmark run -q 4 -s 4 -e 4000000
     python -m flock_tpu_torch.cli nexmark run -q 4 -g 8 --distributed
+    python -m flock_tpu_torch.cli bench --query 4 --seconds 4 --eps 4000000
 
 Outputs per-window row counts and (with --show) decoded result rows, in
 the reference's format.  Everything runs on the card unless ``--device
@@ -28,9 +31,9 @@ of every process (``--shards`` in all, split evenly), each process
 generating only its own partitions.  ``produce`` writes a query's
 generated relations as fragment lines to a file or a socket, and
 ``ingest`` runs the query over such a stream (a tailed file or a TCP
-listener), on the card unless ``--device cpu``.  The reference's ``bench``
-subcommand drives its JAX benchmark harness; the port has none yet, so
-argparse refuses it.
+listener), on the card unless ``--device cpu``.  ``bench`` runs the
+port's benchmark harness (``flock_tpu_torch.tools.bench``) for one query
+and prints its metric line, as the reference's runs its JAX harness.
 """
 
 from __future__ import annotations
@@ -334,6 +337,14 @@ def cmd_produce(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from flock_tpu_torch.tools import bench
+
+    return bench.main(["--query", str(args.query), "--seconds",
+                       str(args.seconds), "--eps", str(args.eps),
+                       "--device", str(args.device)])
+
+
 def main(argv=None) -> int:
     from flock_tpu_torch.config import CONFIG
 
@@ -396,6 +407,12 @@ def main(argv=None) -> int:
     fq.add_argument("-g", "--generators", type=int, default=1)
     fq.add_argument("--show", type=int, default=0)
     fq.set_defaults(fn=cmd_fsql)
+
+    be = sub.add_parser("bench", parents=[dev])
+    be.add_argument("--query", type=int, default=4)
+    be.add_argument("--seconds", type=int, default=4)
+    be.add_argument("--eps", type=int, default=1_000_000)
+    be.set_defaults(fn=cmd_bench)
 
     ig = sub.add_parser("ingest", parents=[dev],
                         help="run a query over an external fragment stream "

@@ -91,8 +91,6 @@ def _check(keys, valid, agg_cols, aggs, out_capacity):
                 or col.device != keys.device or not col.is_contiguous():
             raise TypeError(f"dense_agg: column {c} must be a contiguous "
                             "int32 [n] on the keys' device")
-    if sum(fn in AGG_CODES for _, fn, _ in aggs) > _MAX_AGGS:
-        raise NotImplementedError(f"dense_agg: more than {_MAX_AGGS} aggregates")
     if out_capacity <= 0 or out_capacity >= 2**31:
         raise ValueError(f"dense_agg: out_capacity {out_capacity}")
 
@@ -112,15 +110,39 @@ def dense_agg(keys: torch.Tensor, valid: torch.Tensor,
               agg_cols: dict[str, torch.Tensor], aggs, out_capacity: int):
     """K2.  CPU tensors take :func:`dense_agg_plain`; CUDA tensors launch the
     kernel or raise.  Returns (out_cols with ``__key``, out_valid, overflow
-    as a 0-d bool tensor — no host sync).  On the card the call is one
-    launch: the outputs are ``torch.empty`` and the kernel computes the
-    minimum key and writes every output and flag itself."""
+    as a 0-d bool tensor — no host sync).  The kernel holds at most
+    ``_MAX_AGGS`` aggregates (``AGG_CODES``), so a longer list splits into
+    launches of that many over the same keys and valid mask; ``count``,
+    ``dups``, ``__key``, out_valid and the overflow flag come from the
+    first, since every launch slots alike (slot i holds key min + i).  On
+    the CPU each part takes the plain version, so both devices run the
+    same split."""
     aggs = list(aggs)
     _check(keys, valid, agg_cols, aggs, out_capacity)
     if keys.device.type == "cpu":
-        return dense_agg_plain(keys, valid, agg_cols, aggs, out_capacity)
-    if keys.device.type != "cuda":
+        launch = dense_agg_plain
+    elif keys.device.type == "cuda":
+        launch = _launch
+    else:
         raise TypeError(f"dense_agg: unsupported device {keys.device}")
+    coded = [a for a in aggs if a[1] in AGG_CODES]
+    first = [a for a in aggs if a[1] not in AGG_CODES] + coded[:_MAX_AGGS]
+    out, ovalid, overflow = launch(keys, valid, agg_cols, first, out_capacity)
+    for i in range(_MAX_AGGS, len(coded), _MAX_AGGS):
+        more, _, _ = launch(keys, valid, agg_cols, coded[i:i + _MAX_AGGS],
+                            out_capacity)
+        del more["__key"]
+        out.update(more)
+    return out, ovalid, overflow
+
+
+def _launch(keys, valid, agg_cols, aggs, out_capacity: int):
+    """One launch of K2 for at most ``_MAX_AGGS`` kernel aggregates: the
+    outputs are ``torch.empty`` and the kernel computes the minimum key and
+    writes every output and flag itself."""
+    if sum(fn in AGG_CODES for _, fn, _ in aggs) > _MAX_AGGS:
+        raise NotImplementedError(
+            f"dense_agg: more than {_MAX_AGGS} aggregates in one launch")
     dev = keys.device
 
     def empty(dtype, size=out_capacity):

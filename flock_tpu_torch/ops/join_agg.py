@@ -175,6 +175,29 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def wide_cols(slot_cols, probe_cols, aggs) -> tuple[str, ...]:
+    """The int64 probe columns that only ``max`` aggregates: K1 takes them
+    as they stand (code ``_MAX64``, side 2)."""
+    return tuple(c for c, fn, _ in aggs if fn == "max" and c not in slot_cols
+                 and probe_cols[c].dtype == torch.int64)
+
+
+def fits_kernel(slot_names, wide, terms, aggs) -> bool:
+    """K1's static limits, the one rule of the fused gate
+    (``plan.fused_supported``) and of the kernel's codes (``_codes``): at
+    most ``_MAX_COLS`` columns read (compared or aggregated; a slot name
+    reads the slot column), ``_MAX_TERMS`` comparisons, ``_MAX_AGGS``
+    aggregates besides ``count`` and ``_MAX_PROBE`` int32 probe columns
+    (``wide`` columns take none of those registers).  It holds on every
+    device, so the CPU and the card lower the same plan."""
+    names = dict.fromkeys([c for lhs, _, rhs in terms for c in (lhs, rhs)]
+                          + [c for c, fn, _ in aggs if fn != "count"])
+    probe = [c for c in names if c not in slot_names and c not in wide]
+    return (len(names) <= _MAX_COLS and len(terms) <= _MAX_TERMS
+            and sum(fn != "count" for _, fn, _ in aggs) <= _MAX_AGGS
+            and len(probe) <= _MAX_PROBE)
+
+
 @lru_cache(maxsize=256)
 def _codes(slot_names: tuple, probe_names: tuple, wide: tuple, terms: tuple,
            aggs: tuple):
@@ -208,14 +231,12 @@ def _codes(slot_names: tuple, probe_names: tuple, wide: tuple, terms: tuple,
         if c in wide and fn != "max":
             raise NotImplementedError(f"join_agg: {fn} of an int64 column")
         agg_codes += [_MAX64 if c in wide else AGG_CODES[fn], col(c)]
-    sides = tuple(1 if c in slot_names else 2 if c in wide else 0
-                  for c in names)
-    if len(names) > _MAX_COLS or len(terms) > _MAX_TERMS \
-            or len(agg_codes) // 2 > _MAX_AGGS \
-            or sides.count(0) > _MAX_PROBE:
+    if not fits_kernel(slot_names, wide, terms, aggs):
         raise NotImplementedError(
             "join_agg: too many columns, terms, aggregates or probe columns "
             f"(at most {_MAX_PROBE}) for the kernel")
+    sides = tuple(1 if c in slot_names else 2 if c in wide else 0
+                  for c in names)
     return tuple(names), sides, sides + tuple(term_codes + agg_codes)
 
 
@@ -228,8 +249,7 @@ def _launch(slot_cols, present, m, probe_cols, probe_valid, probe_key, pred,
         raise NotImplementedError(
             "join_agg: the kernel reads only conjunctions of column "
             f"comparisons (plan.Conj), got {pred!r}")
-    wide = tuple(c for c, fn, _ in aggs if fn == "max" and c not in slot_cols
-                 and probe_cols[c].dtype == torch.int64)
+    wide = wide_cols(slot_cols, probe_cols, aggs)
     names, sides, codes = _codes(tuple(slot_cols), tuple(probe_cols), wide,
                                  tuple(terms), tuple(aggs))
     dev, span, n = present.device, present.shape[0], probe_valid.shape[0]

@@ -33,7 +33,8 @@ import torch
 from flock_tpu_torch.batch import Batch
 from flock_tpu_torch.config import CONFIG
 from flock_tpu_torch.ops import kernels
-from flock_tpu_torch.ops.join_agg import join_aggregate, unsupported_aggs
+from flock_tpu_torch.ops.join_agg import (fits_kernel, join_aggregate,
+                                        unsupported_aggs, wide_cols)
 
 Expr = Callable[[dict], torch.Tensor]
 
@@ -464,13 +465,18 @@ def fused_supported(node: FusedJoinAggregate, b_cols,
                     replay: FusedReplay | None) -> bool:
     """Static pre-check: a chain K1 can replay (``fused_replay``),
     aggregating int32 columns or an int64 probe column under max that
-    nothing compares (the wrapper's own rule, ``unsupported_aggs``);
-    anything else takes the unfused path."""
+    nothing compares (the wrapper's own rule, ``unsupported_aggs``), within
+    the kernel's static limits (``fits_kernel``, the rule its codes apply);
+    anything else takes the unfused path, on every device."""
     if replay is None:
         return False
     slots = {dst: b_cols[src] for src, dst in node.join.take}
-    return not unsupported_aggs(slots, replay.probe_cols, replay.pred,
-                                replay.aggs)
+    if unsupported_aggs(slots, replay.probe_cols, replay.pred, replay.aggs):
+        return False
+    terms = () if replay.pred is None else replay.pred.terms
+    return fits_kernel(tuple(slots),
+                       wide_cols(slots, replay.probe_cols, replay.aggs),
+                       tuple(terms), replay.aggs)
 
 
 def fused_local_pass(node: FusedJoinAggregate, b_cols, b_valid, p_cols,

@@ -2,7 +2,8 @@
 ``nexmark run`` (single-card and ``--distributed``), ``ysb run``, ``fsql``
 (one-shot and REPL), ``ingest`` (``--file``, ``--listen``) with ``--device
 cpu``, ``produce`` (``--file``, ``--connect``) and ``explain`` print the
-reference's lines for the same arguments, times left out; the sinks, the
+reference's lines for the same arguments, times left out; ``bench``
+prints the reference harness's metric line over its rows; the sinks, the
 metrics registry and the executor's records (tests/test_runtime_aux.py's
 tests, against the port's modules) (PyTorch port, CPU)."""
 
@@ -147,14 +148,20 @@ def test_nexmark_trace_writes_a_chrome_trace(monkeypatch, tmp_path, capsys):
     assert (where / "trace.json").stat().st_size > 0
 
 
-@pytest.mark.parametrize("argv", [["bench"]])
-def test_unported_subcommands_and_flags_are_refused(argv, capsys):
-    """The bench (the reference's JAX harness) is not registered: argparse
-    refuses it by name."""
-    with pytest.raises(SystemExit) as e:
-        cli.main(argv + ["--device", "cpu"])
-    assert e.value.code == 2
-    assert argv[-1].split("=")[0] in capsys.readouterr().err
+def test_bench_prints_the_reference_metric_line(capsys):
+    """``bench`` runs the port's harness for one query: its record, then
+    the last line in the reference harness's format, over the reference's
+    input rows and windows at the same arguments."""
+    from test_torch_bench import metric_line, ref_bench
+
+    assert cli.main(["bench", "--query", "4", "--seconds", "2", "--eps",
+                     "2000", "--device", "cpu"]) == 0
+    out = capsys.readouterr()
+    metric_line(out.out.splitlines()[-1], 4)
+    record = json.loads(out.err.splitlines()[-1])
+    want = ref_bench.bench_query(4, 2, 2000, repeats=1)
+    assert (record["rows_in"], record["windows"]) \
+        == (want["rows_in"], want["windows"])
 
 
 # -- ingest and produce -------------------------------------------------------

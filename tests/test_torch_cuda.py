@@ -962,3 +962,129 @@ def test_ingest_q4_on_the_card_equals_cpu(dev):
     for g, w in zip(got, want):
         for k in w.columns:
             np.testing.assert_array_equal(g.columns[k], w.columns[k])
+
+
+# -- more aggregates than one kernel launch holds ------------------------------
+
+# nine aggregates by one int32 key (one more than a K2 launch holds), the
+# BETWEEN chain with nine (one more than K1 takes), five int64 sums by
+# auction (ten K2 sums in a sharded final)
+MANY_AGGS_SQL = (
+    "SELECT auction, Max(price), Min(price), Sum(price), Max(b_date_time), "
+    "Min(b_date_time), Max(bidder), Min(bidder), Sum(bidder), "
+    "Sum(b_date_time) FROM bid GROUP BY auction")
+MANY_AGGS_JOIN_SQL = (
+    "SELECT a_id, Max(price), Min(price), Sum(price), Max(bidder), "
+    "Min(bidder), Sum(bidder), Max(b_date_time), Min(b_date_time), "
+    "Sum(b_date_time) FROM auction INNER JOIN bid ON a_id = auction WHERE "
+    "b_date_time BETWEEN a_date_time AND expires GROUP BY a_id")
+FIVE_SUMS_SQL = ("SELECT auction, Sum(price) AS s1, Sum(price) AS s2, "
+                 "Sum(price) AS s3, Sum(price) AS s4, Sum(price) AS s5 "
+                 "FROM bid GROUP BY auction;")
+
+
+@pytest.fixture
+def no_plain_on_card(monkeypatch):
+    """A card tensor reaching a plain K2 version fails the test."""
+    from flock_tpu_torch.ops import dense_agg as dense_agg_module
+
+    for mod in (dense_agg_module, kernels):
+        plain = mod.dense_agg_plain
+
+        def guarded(keys, *a, plain=plain):
+            assert not keys.is_cuda, "a card tensor reached dense_agg_plain"
+            return plain(keys, *a)
+
+        monkeypatch.setattr(mod, "dense_agg_plain", guarded)
+
+
+@pytest.mark.parametrize("n_aggs", [9, 17])
+def test_dense_agg_splits_aggregates_over_launches(dev, n_aggs,
+                                                   no_plain_on_card):
+    """More kernel aggregates than one launch holds (8): ceil(n / 8)
+    launches on the same keys, every output equal to the plain version's
+    (run on the CPU), and no plain version on a card tensor."""
+    rng = np.random.default_rng(n_aggs)
+    n, cap = 500_000, 300_000
+    keys = rng.integers(3, 3 + cap + 100, n).astype(np.int32)
+    valid = rng.random(n) < 0.8
+    cols = {c: rng.integers(-(10**9), 10**9, n).astype(np.int32)
+            for c in "vw"}
+    fns = ("count_sum", "sum", "min", "max")
+    aggs = [(None, "count", "c")] + [
+        ("vw"[i % 2], fns[i % 4], f"a{i}") for i in range(n_aggs)]
+    want = dense_agg(torch.from_numpy(keys), torch.from_numpy(valid),
+                     {c: torch.from_numpy(v) for c, v in cols.items()},
+                     aggs, cap)
+    before = dense_agg.launches
+    got = dense_agg(torch.from_numpy(keys).to(dev),
+                    torch.from_numpy(valid).to(dev),
+                    {c: torch.from_numpy(v).to(dev) for c, v in cols.items()},
+                    aggs, cap)
+    assert dense_agg.launches - before == -(-n_aggs // 8)
+    _same({k: v.cpu() for k, v in got[0].items()}, want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert bool(got[2]) == bool(want[2]) is True
+
+
+def _sql_window(sql, device, seconds=2, eps=20_000):
+    from flock_tpu_torch.runtime.executor import LocalExecutor
+    from flock_tpu_torch.runtime.tables import concat_relations
+    from flock_tpu_torch.sql.catalog import nexmark_catalog
+    from flock_tpu_torch.sql.lower import sql_to_spec
+
+    spec = sql_to_spec(sql, nexmark_catalog())
+    window = concat_relations(generate_epochs(seconds, eps),
+                              spec.relations)
+    ex = LocalExecutor(spec, device=device)
+    return spec, ex.materialize(ex.execute_window(window))
+
+
+@pytest.mark.parametrize("sql,launches", [
+    (MANY_AGGS_SQL, {"join_agg": 0, "dense_agg": 2, "gather": 0}),
+    (MANY_AGGS_JOIN_SQL, {"join_agg": 0, "dense_agg": 3, "gather": 1})])
+def test_many_aggregates_sql_on_the_card_equals_cpu(dev, sql, launches,
+                                                    no_plain_on_card):
+    """Nine aggregates by auction take K2 in two launches; the BETWEEN
+    chain with nine takes the unfused path (the join's slotting on K2 and
+    gather on K3, the aggregate's two K2 launches), with no K1 launch: the
+    card's rows equal the CPU path's."""
+    wrappers = {"join_agg": join_aggregate, "dense_agg": dense_agg,
+                "gather": gather}
+    before = {k: w.launches for k, w in wrappers.items()}
+    spec, got = _sql_window(sql, dev)
+    assert {k: w.launches - before[k]
+            for k, w in wrappers.items()} == launches
+    _, want = _sql_window(sql, "cpu")
+    assert len(want[spec.schema.names[0]]) > 0
+    for name in spec.schema.names:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+def test_five_wide_sums_sharded_on_the_card_equal_cpu(dev, no_plain_on_card):
+    """Five int64 sums by auction over 8 shards: each shard's partial is
+    one K2 launch and its final (ten K2 sums by 31-bit halves) two; the
+    rows equal the CPU path's."""
+    from flock_tpu_torch.parallel.executor import DistributedExecutor
+    from flock_tpu_torch.runtime.stream import generate_epoch_parts
+    from flock_tpu_torch.runtime.tables import concat_relations
+    from flock_tpu_torch.sql.catalog import nexmark_catalog
+    from flock_tpu_torch.sql.lower import sql_to_spec
+
+    spec = sql_to_spec(FIVE_SUMS_SQL, nexmark_catalog())
+    shards = [[] for _ in range(8)]
+    for epoch in generate_epoch_parts(2, 20_000, 8):
+        for p, part in enumerate(epoch):
+            shards[p].append(part)
+    tables = [concat_relations(ps, ("bid",)) for ps in shards]
+    got = []
+    for device in (dev, "cpu"):
+        before = dense_agg.launches
+        dist = DistributedExecutor(spec, 8, device=device)
+        got.append(dist.execute_window(tables))
+        if device is dev:
+            assert dense_agg.launches - before == 8 + 8 * 2
+    assert len(got[1]["auction"]) > 0
+    for name in spec.schema.names:
+        np.testing.assert_array_equal(got[0][name], got[1][name],
+                                      err_msg=name)

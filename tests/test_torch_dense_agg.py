@@ -12,6 +12,7 @@ import torch
 from flock_tpu.ops import kernels as ref_kernels
 from flock_tpu.pallas import factored
 from flock_tpu_torch.ops import kernels
+from flock_tpu_torch.ops import dense_agg as dense_agg_module
 from flock_tpu_torch.ops.dense_agg import dense_agg
 
 torch.set_num_threads(1)
@@ -133,3 +134,32 @@ def test_slotting_shape():
     _assert_same(got[0], ref[0], ["k", "a", "cat", "dup"])
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
     assert int(got[0]["dup"].max()) == 1
+
+
+@pytest.mark.parametrize("n_aggs", [9, 17])
+def test_more_aggregates_than_one_launch_holds(n_aggs, monkeypatch):
+    """More kernel aggregates than one K2 launch holds (8) split over
+    launches on the same keys: every output equals pallas_factored_agg's
+    in interpret mode, count and out_valid from the first launch, and the
+    plain version runs once per launch (ceil(n / 8)), the split the card
+    takes."""
+    span = 4096
+    keys, valid, cols = _inputs(8 + n_aggs, span=span)
+    fns = ("count_sum", "sum", "min", "max")
+    aggs = [(None, "count", "c")] + [
+        ("vw"[i % 2], fns[i % 4], f"a{i}") for i in range(n_aggs)]
+    ref_out, ref_valid, esc = factored.pallas_factored_agg(
+        jnp.asarray(keys), jnp.asarray(valid),
+        {c: jnp.asarray(a) for c, a in cols.items()}, aggs, span,
+        s_loc=1024, interpret=True)
+    assert not bool(esc)
+    launches = []
+    plain = dense_agg_module.dense_agg_plain
+    monkeypatch.setattr(dense_agg_module, "dense_agg_plain",
+                        lambda *a: launches.append(a[3]) or plain(*a))
+    got, gvalid, ovf = dense_agg(*_torch(keys, valid, cols), aggs, span)
+    assert [sum(f != "count" for _, f, _ in a) for a in launches] \
+        == [8] * (n_aggs // 8) + [n_aggs % 8]
+    _assert_same(got, ref_out, ["__key", "c"] + [n for *_, n in aggs[1:]])
+    np.testing.assert_array_equal(gvalid.numpy(), np.asarray(ref_valid))
+    assert not bool(ovf)

@@ -281,6 +281,37 @@ def test_distributed_equals_reference_in_order(case, parts):
     assert dist.fallback_runs == 0
 
 
+FIVE_SUMS_SQL = ("SELECT auction, Sum(price) AS s1, Sum(price) AS s2, "
+                 "Sum(price) AS s3, Sum(price) AS s4, Sum(price) AS s5 "
+                 "FROM bid GROUP BY auction;")
+
+
+def test_final_of_five_wide_sums_splits_over_k2_launches(parts, monkeypatch):
+    """Five int64 ``Sum(price)`` by auction: the final turns each partial
+    sum into two K2 sums by 31-bit halves (ten), which K2 takes in two
+    launches on each shard (8 + 2; the plain version per launch here, as
+    the kernel on the card), and the rows equal the reference's
+    DistributedExecutor's, in order."""
+    from flock_tpu_torch.ops import dense_agg
+
+    spec = sql_to_spec(FIVE_SUMS_SQL, nexmark_catalog())
+    ref_spec = ref_sql_to_spec(FIVE_SUMS_SQL, ref_catalog())
+    shard_tables = shard_window(parts, ("bid",))
+    want = ref_materialize(ref_spec, RefDist(ref_spec, N).execute_window(
+        shard_tables))
+    sizes = []
+    plain = dense_agg.dense_agg_plain
+    monkeypatch.setattr(dense_agg, "dense_agg_plain", lambda *a: sizes.append(
+        sum(f in dense_agg.AGG_CODES for _, f, _ in a[3])) or plain(*a))
+    dist = DistributedExecutor(spec, N, device="cpu")
+    got = materialize_columns(spec, dist.execute_window(shard_tables))
+    assert sizes == [5] * N + [8, 2] * N
+    assert len(got["auction"]) > 0
+    for name in spec.schema.names:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+        assert got[name].dtype == want[name].dtype, name
+
+
 # -- duplicate build keys, and the mesh's width --------------------------------
 
 

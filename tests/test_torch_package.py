@@ -31,6 +31,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flock_tpu"))
 print(len([m for m in sys.modules if m.startswith("flock_tpu_torch")]))
 assert not bad, bad
+assert "flock_tpu_torch.tools.bench" in sys.modules
 """
 
 
@@ -59,7 +60,7 @@ def test_resolve_device(no_cuda):
                                    "cli", "sql", "mesh", "dist-executor",
                                    "dist-driver", "cli-distributed",
                                    "cli-multihost", "ingest",
-                                   "cli-ingest"])
+                                   "cli-ingest", "bench", "cli-bench"])
 def test_no_silent_cpu_fallback(no_cuda, entry):
     """Without CUDA, every entry point called with no device raises."""
     from flock_tpu_torch import cli
@@ -94,6 +95,12 @@ def test_no_silent_cpu_fallback(no_cuda, entry):
             IngestDriver(spec, 2)
         elif entry == "cli-ingest":
             cli.main(["ingest", "--file", "never-read.jsonl", "--lines", "1"])
+        elif entry == "bench":
+            from flock_tpu_torch.tools import bench
+
+            bench.main(["--only", "4", "--seconds", "1", "--eps", "100"])
+        elif entry == "cli-bench":
+            cli.main(["bench", "--seconds", "1", "--eps", "100"])
         elif entry in ("cli-distributed", "cli-multihost"):
             cli.main(["nexmark", "run", "-q", "4", "-s", "1", "-e", "100",
                       "--" + entry[4:]])

@@ -326,3 +326,64 @@ def test_callable_predicate_takes_the_unfused_path(monkeypatch):
     w = {k: np.asarray(v)[rv] for k, v in rout.columns.items()}
     assert len(g["k"]) > 0
     assert _rows(g, ["k", "m"]) == _rows(w, ["k", "m"])
+
+
+# nine aggregates: one more than a launch of K2 holds (single-key GROUP BY)
+# and than K1 takes (the fused BETWEEN chain)
+MANY_AGGS_SQL = (
+    "SELECT auction, Max(price), Min(price), Sum(price), Max(b_date_time), "
+    "Min(b_date_time), Max(bidder), Min(bidder), Sum(bidder), "
+    "Sum(b_date_time) FROM bid GROUP BY auction")
+MANY_AGGS_JOIN_SQL = (
+    "SELECT a_id, Max(price), Min(price), Sum(price), Max(bidder), "
+    "Min(bidder), Sum(bidder), Max(b_date_time), Min(b_date_time), "
+    "Sum(b_date_time) FROM auction INNER JOIN bid ON a_id = auction WHERE "
+    "b_date_time BETWEEN a_date_time AND expires GROUP BY a_id")
+
+
+def _equals_reference_sql(sql):
+    spec = sql_to_spec(sql, nexmark_catalog())
+    got, _ = _run_port(spec, _window())
+    want = _run_ref(ref_sql_to_spec(sql, ref_nexmark_catalog()), _window())
+    assert list(got) == list(want)
+    _same_columns(got, want, list(got), list(want))
+    assert len(got[spec.schema.names[0]]) > 0
+    return spec
+
+
+def test_more_aggregates_than_one_k2_launch_equal_the_reference(monkeypatch):
+    """A GROUP BY of one int32 key with nine aggregates takes K2 in two
+    launches (8 + 1; the plain version per launch here, as the kernel on
+    the card) and returns the reference's rows."""
+    from flock_tpu_torch.ops import dense_agg
+
+    parts = []
+    plain = dense_agg.dense_agg_plain
+    monkeypatch.setattr(dense_agg, "dense_agg_plain",
+                        lambda *a: parts.append(a[3]) or plain(*a))
+    _equals_reference_sql(MANY_AGGS_SQL)
+    assert [sum(f in dense_agg.AGG_CODES for _, f, _ in a)
+            for a in parts] == [8, 1]
+
+
+def test_fused_chain_beyond_k1_limits_takes_the_unfused_path(monkeypatch):
+    """The BETWEEN chain with nine aggregates replays (a Conj), but K1
+    takes at most eight: ``fused_supported`` applies the kernel's own
+    limits (``join_agg.fits_kernel``) on every device, so the window lowers
+    unfused — K1 is never called, its launches do not move — and the
+    rows equal the reference's."""
+    from flock_tpu_torch.ops import join_agg
+
+    spec = sql_to_spec(MANY_AGGS_JOIN_SQL, nexmark_catalog())
+    node = next(n for n in walk(plan.fuse_join_aggregates(spec.plan))
+                if isinstance(n, FusedJoinAggregate))
+    b = LocalExecutor(spec, device="cpu").prepare_window(
+        {r: _window()[r] for r in spec.relations})
+    replay = plan.fused_replay(node, b["auction"].columns, b["bid"].columns)
+    assert replay is not None and len(replay.aggs) == 9
+    assert not plan.fused_supported(node, b["auction"].columns, replay)
+    launches = join_agg.join_aggregate.launches
+    monkeypatch.setattr(plan, "join_aggregate",
+                        lambda *a: pytest.fail("K1 called"))
+    _equals_reference_sql(MANY_AGGS_JOIN_SQL)
+    assert join_agg.join_aggregate.launches == launches
