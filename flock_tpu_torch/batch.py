@@ -22,6 +22,7 @@ import torch
 from flock_tpu_torch import resolve_device
 from flock_tpu_torch.config import CONFIG
 from flock_tpu_torch.datagen.nexmark import BASE_TIME
+from flock_tpu_torch.utils.metrics import METRICS
 
 TS_BASE = BASE_TIME  # sinks add this back to int32 relative-ms timestamps
 
@@ -119,23 +120,28 @@ class Batch:
     def to_numpy(self, restore_ts: tuple[str, ...] = ()) -> dict[str, np.ndarray]:
         """Compact to live rows on the host; named int32 ts columns are
         restored to absolute int64 ms.  All columns and the mask travel in
-        ONE device-to-host copy (their bytes concatenated on the device)."""
-        names = list(self.columns)
-        tensors = [self.valid] + [self.columns[n] for n in names]
-        flat = torch.cat([t.contiguous().view(torch.uint8) for t in tensors])
-        host = flat.cpu().numpy()
-        arrays, off = [], 0
-        for t in tensors:
-            nbytes = t.numel() * t.element_size()
-            arrays.append(host[off:off + nbytes].view(_np_dtype(t.dtype)))
-            off += nbytes
-        valid = arrays[0]
-        out = {}
-        for name, h in zip(names, arrays[1:]):
-            h = h[valid]
-            if name in restore_ts:
-                h = h.astype(np.int64) + TS_BASE
-            out[name] = h
+        ONE device-to-host copy (their bytes concatenated on the device):
+        the span ``emit.copy``; the compaction on the host is
+        ``emit.compact``."""
+        with METRICS.span("emit.copy"):
+            names = list(self.columns)
+            tensors = [self.valid] + [self.columns[n] for n in names]
+            flat = torch.cat([t.contiguous().view(torch.uint8)
+                              for t in tensors])
+            host = flat.cpu().numpy()
+        with METRICS.span("emit.compact"):
+            arrays, off = [], 0
+            for t in tensors:
+                nbytes = t.numel() * t.element_size()
+                arrays.append(host[off:off + nbytes].view(_np_dtype(t.dtype)))
+                off += nbytes
+            valid = arrays[0]
+            out = {}
+            for name, h in zip(names, arrays[1:]):
+                h = h[valid]
+                if name in restore_ts:
+                    h = h.astype(np.int64) + TS_BASE
+                out[name] = h
         return out
 
 

@@ -35,9 +35,15 @@ invalid, and the plan aggregates by ``__session`` (kernel K2).
 to back and every window's flags are read in one host sync; only the
 windows that escaped rerun on the fallback.
 
-Every window is counted in ``utils.metrics.METRICS`` (windows, rows in,
-execute seconds), as in the reference, and every read of a window's flags
-in ``host_syncs``.
+Every window is counted in ``utils.metrics.METRICS`` (windows, execute
+seconds), as in the reference, and every read of a window's flags in
+``host_syncs``.  Spans (``METRICS.span``, recorded only while tracing)
+mark the executor's parts: ``execute`` (a whole call), ``execute.form``
+(the concatenation that forms a window), ``execute.lower`` (the plan's
+compilation and first lowering: the dispatch of its operations),
+``execute.flags`` (the flags read: the host blocked on the card) and
+``execute.fallback`` (an escape's rerun and its flags read); ``emit`` (a
+whole ``materialize``) and ``emit.sink`` (``materialize_columns``).
 """
 
 from __future__ import annotations
@@ -174,6 +180,7 @@ class LocalExecutor:
             batches[rel] = Batch.from_numpy(cols, cap, self.device)
         return batches
 
+    @METRICS.spanned("execute")
     def execute_batches(self, batches: dict[str, Batch],
                         check_overflow: bool = True) -> Batch:
         """Run the plan over device-resident Batches (compute only); the
@@ -186,9 +193,9 @@ class LocalExecutor:
         return self._run({**self.statics(), **batches}, agg_cap,
                          check_overflow, lambda: "caps={}".format(tuple(
                              sorted((r, b.capacity)
-                                    for r, b in batches.items()))),
-                         sum(b.capacity for b in batches.values()))
+                                    for r, b in batches.items()))))
 
+    @METRICS.spanned("execute")
     def execute_epochs(self, epoch_tables: list[dict[str, Batch]],
                        check_overflow: bool = True) -> Batch:
         """Run the plan over a window formed from device-resident per-epoch
@@ -204,44 +211,45 @@ class LocalExecutor:
         agg_cap = self.agg_capacity or (
             len(epoch_tables) * max(c for _, c in caps)
             + CONFIG.agg_span_margin)
-        if len(epoch_tables) == 1:
-            merged = dict(epoch_tables[0])
-        else:
-            merged = {rel: Batch(
-                {c: torch.cat([et[rel].columns[c] for et in epoch_tables])
-                 for c in b.columns},
-                torch.cat([et[rel].valid for et in epoch_tables]))
-                for rel, b in epoch_tables[0].items()}
+        with METRICS.span("execute.form"):
+            if len(epoch_tables) == 1:
+                merged = dict(epoch_tables[0])
+            else:
+                merged = {rel: Batch(
+                    {c: torch.cat([et[rel].columns[c] for et in epoch_tables])
+                     for c in b.columns},
+                    torch.cat([et[rel].valid for et in epoch_tables]))
+                    for rel, b in epoch_tables[0].items()}
         tables = {**self.statics(), **merged}
         return self._run(tables, agg_cap, check_overflow,
-                         lambda: f"w={len(epoch_tables)}, caps={caps}",
-                         len(epoch_tables) * sum(c for _, c in caps))
+                         lambda: f"w={len(epoch_tables)}, caps={caps}")
 
     @contextlib.contextmanager
-    def _metered(self, rows_in: int, windows: int = 1):
+    def _metered(self, windows: int = 1):
         """``windows`` windows in ``METRICS``, under the reference's names:
-        the windows, their ``rows_in`` (their capacities: host ints, no
-        sync) and the time of the block (``execute_s``)."""
+        the windows and the time of the block (``execute_s``)."""
         q = f"q{self.spec.number}"
         METRICS.count(f"{q}.windows", windows)
-        METRICS.count(f"{q}.rows_in", rows_in)
         with METRICS.timer(f"{q}.execute_s"):
             yield
 
     def _run(self, tables: dict[str, Batch], agg_cap: int,
-             check_overflow: bool, what, rows_in: int) -> Batch:
+             check_overflow: bool, what) -> Batch:
         """The plan over one window's tables, with the overflow and escape
         flags read in one host sync and the fallback rerun on an escape;
         ``what()`` describes the window's capacities for an overflow."""
-        with self._metered(rows_in):
-            fn = compile_plan(self.spec.plan, agg_cap)
-            out, overflow, escape = fn(tables)
-            overflow, escape = torch.stack([overflow, escape]).tolist()
+        with self._metered():
+            with METRICS.span("execute.lower"):
+                fn = compile_plan(self.spec.plan, agg_cap)
+                out, overflow, escape = fn(tables)
+            with METRICS.span("execute.flags"):
+                overflow, escape = torch.stack([overflow, escape]).tolist()
             self.host_syncs += 1
             if escape:
                 self.fallback_runs += 1
-                out, overflow, _ = fn(tables, fallback=True)
-                overflow = bool(overflow)
+                with METRICS.span("execute.fallback"):
+                    out, overflow, _ = fn(tables, fallback=True)
+                    overflow = bool(overflow)
                 self.host_syncs += 1
         if check_overflow and overflow:
             raise OverflowError(
@@ -249,6 +257,7 @@ class LocalExecutor:
                 f"({what()}, agg={agg_cap})")
         return out
 
+    @METRICS.spanned("execute")
     def execute_stacked(self, windows: list[dict[str, Batch]],
                         check_overflow: bool = True):
         """Run W windows of equal capacities (each a dict of device Batches,
@@ -277,25 +286,28 @@ class LocalExecutor:
             max(windows[0][r].capacity for r in window_relations(windows[0]))
             + CONFIG.agg_span_margin)
         statics = self.statics()
-        fn = compile_plan(self.spec.plan, agg_cap)
-        with self._metered(len(windows) * sum(c for _, c in caps[0]),
-                           len(windows)):
-            runs = [fn({**statics, **w}) for w in windows]
-            flags = torch.stack([f for _, ovf, esc in runs
-                                 for f in (ovf, esc)]).tolist()
+        with self._metered(len(windows)):
+            with METRICS.span("execute.lower"):
+                fn = compile_plan(self.spec.plan, agg_cap)
+                runs = [fn({**statics, **w}) for w in windows]
+            with METRICS.span("execute.flags"):
+                flags = torch.stack([f for _, ovf, esc in runs
+                                     for f in (ovf, esc)]).tolist()
             self.host_syncs += 1
             outs = [out for out, _, _ in runs]
             overflow = flags[0::2]
             escaped = [i for i, esc in enumerate(flags[1::2]) if esc]
-            reruns = []
-            for i in escaped:
-                self.fallback_runs += 1
-                outs[i], ovf, _ = fn({**statics, **windows[i]},
-                                     fallback=True)
-                reruns.append(ovf)
-            if reruns:
-                for i, ovf in zip(escaped, torch.stack(reruns).tolist()):
-                    overflow[i] = ovf
+            if escaped:
+                with METRICS.span("execute.fallback"):
+                    reruns = []
+                    for i in escaped:
+                        self.fallback_runs += 1
+                        outs[i], ovf, _ = fn({**statics, **windows[i]},
+                                             fallback=True)
+                        reruns.append(ovf)
+                    for i, ovf in zip(escaped,
+                                      torch.stack(reruns).tolist()):
+                        overflow[i] = ovf
                 self.host_syncs += 1
             stacked = Batch(
                 {c: torch.stack([o.columns[c] for o in outs])
@@ -321,6 +333,7 @@ class LocalExecutor:
         rows."""
         return Batch.from_numpy(cols, capacity, self.device)
 
+    @METRICS.spanned("execute")
     def execute_session_tables(self, chunks: list[Batch], key: str,
                                tables: tuple, cids,
                                agg_capacity: int) -> Batch:
@@ -335,9 +348,9 @@ class LocalExecutor:
         cols, valid = session_rows(chunks, key, tables, cids)
         return self._run({self._driving_relation(): Batch(cols, valid)},
                          agg_capacity, True,
-                         lambda: f"session emission, {len(chunks)} chunks",
-                         sum(ch.capacity for ch in chunks))
+                         lambda: f"session emission, {len(chunks)} chunks")
 
+    @METRICS.spanned("execute")
     def execute_consts(self, chunks: list[Batch],
                        const_cols: dict[str, list],
                        agg_capacity: int) -> Batch:
@@ -356,10 +369,12 @@ class LocalExecutor:
             if keys and keys[0] in chunks[0].columns else None
         rel = self._driving_relation()
         if _consts_fast_shape(plan, rel, names, key_dtype=key_dt):
-            with self._metered(sum(ch.capacity for ch in chunks)):
-                out, overflow = _run_plan_consts_fast(
-                    plan, agg_capacity, chunks, names, vals.tolist())
-                overflow = bool(overflow)
+            with self._metered():
+                with METRICS.span("execute.lower"):
+                    out, overflow = _run_plan_consts_fast(
+                        plan, agg_capacity, chunks, names, vals.tolist())
+                with METRICS.span("execute.flags"):
+                    overflow = bool(overflow)
                 self.host_syncs += 1
             if overflow:
                 raise OverflowError(
@@ -373,17 +388,17 @@ class LocalExecutor:
                          agg_capacity: int) -> Batch:
         """The general runner: the chunks concatenated on the device, each
         constant filled per chunk (``torch.full``), then the plan."""
-        cols = {c: torch.cat([ch.columns[c] for ch in chunks])
-                for c in chunks[0].columns}
-        for j, name in enumerate(names):
-            cols[name] = torch.cat([
-                torch.full((ch.capacity,), int(vals[i, j]), dtype=torch.int32,
-                           device=ch.valid.device)
-                for i, ch in enumerate(chunks)])
-        batch = Batch(cols, torch.cat([ch.valid for ch in chunks]))
+        with METRICS.span("execute.form"):
+            cols = {c: torch.cat([ch.columns[c] for ch in chunks])
+                    for c in chunks[0].columns}
+            for j, name in enumerate(names):
+                cols[name] = torch.cat([
+                    torch.full((ch.capacity,), int(vals[i, j]),
+                               dtype=torch.int32, device=ch.valid.device)
+                    for i, ch in enumerate(chunks)])
+            batch = Batch(cols, torch.cat([ch.valid for ch in chunks]))
         return self._run({rel: batch}, agg_capacity, True,
-                         lambda: f"const-epoch, {len(chunks)} chunks",
-                         sum(ch.capacity for ch in chunks))
+                         lambda: f"const-epoch, {len(chunks)} chunks")
 
     def _driving_relation(self) -> str:
         rels = window_relations(self.spec.relations)
@@ -391,6 +406,7 @@ class LocalExecutor:
             raise ValueError("chunked execution needs one driving relation")
         return rels[0]
 
+    @METRICS.spanned("emit")
     def materialize(self, out: Batch) -> dict[str, np.ndarray]:
         return materialize_columns(self.spec, out.to_numpy())
 
@@ -406,12 +422,13 @@ def session_rows(chunks: list[Batch], key: str, tables: tuple, cids):
     rank_tab, ok_tab, end_tab, cmin, k = tables
     span_bucket = len(rank_tab)
     dev = chunks[0].valid.device
-    cols = {c: torch.cat([ch.columns[c] for ch in chunks])
-            for c in chunks[0].columns}
-    valid_in = torch.cat([ch.valid for ch in chunks])
-    cidvec = torch.cat([torch.full((ch.capacity,), int(cid),
-                                   dtype=torch.int32, device=dev)
-                        for ch, cid in zip(chunks, cids)])
+    with METRICS.span("execute.form"):
+        cols = {c: torch.cat([ch.columns[c] for ch in chunks])
+                for c in chunks[0].columns}
+        valid_in = torch.cat([ch.valid for ch in chunks])
+        cidvec = torch.cat([torch.full((ch.capacity,), int(cid),
+                                       dtype=torch.int32, device=dev)
+                            for ch, cid in zip(chunks, cids)])
     build = {"__k": (torch.arange(span_bucket, device=dev)
                      + int(cmin)).to(torch.int32)}
     for name, tab in (("__rank", rank_tab), ("__ok", ok_tab),
@@ -427,6 +444,7 @@ def session_rows(chunks: list[Batch], key: str, tables: tuple, cids):
     return cols, valid
 
 
+@METRICS.spanned("emit.sink")
 def materialize_columns(spec: QuerySpec, host: dict[str, np.ndarray]
                         ) -> dict[str, np.ndarray]:
     """Sink-side finalization: restore absolute timestamps (int32 relative

@@ -51,6 +51,7 @@ from flock_tpu_torch.runtime.payload import FragmentId, Payload
 from flock_tpu_torch.runtime.tables import (concat_relations,
                                             epoch_to_relations,
                                             window_relations)
+from flock_tpu_torch.utils.metrics import METRICS
 
 # widen-and-retry budget of one window
 _WIDENS = 5
@@ -637,9 +638,16 @@ class StreamDriver:
 
     def stage_epochs(self, epochs: list[dict], caps: dict[str, int]
                      ) -> list[dict[str, Batch]]:
-        """Every epoch's window relations on the device, once each."""
-        return [{rel: self.executor.stage_chunk(e[rel], cap)
-                 for rel, cap in caps.items()} for e in epochs]
+        """Every epoch's window relations on the device, once each; the
+        host's time per epoch in ``METRICS`` (``stage.epoch_s`` over
+        ``stage.epochs``)."""
+        staged = []
+        for e in epochs:
+            with METRICS.timer("stage.epoch_s"):
+                staged.append({rel: self.executor.stage_chunk(e[rel], cap)
+                               for rel, cap in caps.items()})
+            METRICS.count("stage.epochs")
+        return staged
 
     def _run_ranges(self, epochs) -> list[WindowResult]:
         """Stage each epoch on the device ONCE; windows concatenate there
@@ -648,28 +656,25 @@ class StreamDriver:
         caps = self.epoch_caps(epochs)
         staged = self.stage_epochs(epochs, caps)
         out = []
-        ranges = self.epoch_ranges(epochs)
-        widx = attempt = 0
-        while widx < len(ranges):
-            tag, rng = ranges[widx]
-            ets = [staged[t] for t in rng if t < len(staged)]
-            try:
-                b = self.executor.execute_epochs(ets)
-            except OverflowError:
-                # static buffers too small (wide key span, or join fan-out
-                # extras from duplicate build keys): double the per-epoch
-                # capacities, stage again, retry the window
-                attempt += 1
-                if attempt > _WIDENS:
-                    raise
-                caps = {r: c * 2 for r, c in caps.items()}
-                staged = self.stage_epochs(epochs, caps)
-                continue
-            out.append(WindowResult(tag, self.executor.materialize(b)))
-            widx += 1
-            attempt = 0   # the widen budget is per window
+        for tag, rng in self.epoch_ranges(epochs):
+            with METRICS.span("driver.window"):
+                for attempt in range(_WIDENS + 1):
+                    ets = [staged[t] for t in rng if t < len(staged)]
+                    try:
+                        b = self.executor.execute_epochs(ets)
+                        break
+                    except OverflowError:
+                        # static buffers too small (wide key span, or join
+                        # fan-out extras from duplicate build keys): double
+                        # the per-epoch capacities, stage again, retry
+                        if attempt == _WIDENS:
+                            raise
+                        caps = {r: c * 2 for r, c in caps.items()}
+                        staged = self.stage_epochs(epochs, caps)
+                out.append(WindowResult(tag, self.executor.materialize(b)))
         return out
 
+    @METRICS.spanned("driver.window")
     def _execute_retry(self, tag, tables, caps) -> WindowResult:
         """One window from host tables with the overflow widen-and-retry:
         the aggregate capacity quadruples, relation capacities double."""
@@ -783,17 +788,18 @@ class StreamDriver:
                     - min(mn for _, _, mn, _ in pending) + 1)
             agg_cap = _bucket_cap_fine(span + CONFIG.agg_span_margin)
             pending.clear()
-            for attempt in range(_WIDENS + 1):
-                try:
-                    b = self.executor.execute_consts(
-                        chunks, {"p_time": p_times}, agg_cap)
-                    break
-                except OverflowError:
-                    if attempt == _WIDENS:
-                        raise
-                    agg_cap *= 4
-            return WindowResult(("ptime", start, start + w),
-                                self.executor.materialize(b))
+            with METRICS.span("driver.window"):
+                for attempt in range(_WIDENS + 1):
+                    try:
+                        b = self.executor.execute_consts(
+                            chunks, {"p_time": p_times}, agg_cap)
+                        break
+                    except OverflowError:
+                        if attempt == _WIDENS:
+                            raise
+                        agg_cap *= 4
+                return WindowResult(("ptime", start, start + w),
+                                    self.executor.materialize(b))
 
         for t, tables in enumerate(epochs):
             if t - start >= w:
@@ -877,19 +883,20 @@ class StreamDriver:
             if bucket <= _SPAN_LIMIT:
                 dt = em.dense_tables(bucket)
         if dt is not None:
-            chunks = [ch.staged for ch in em.chunks]
-            cids = [ch.cid for ch in em.chunks]
-            for attempt in range(_WIDENS + 1):
-                try:
-                    b = self.executor.execute_session_tables(
-                        chunks, SessionState.key, dt, cids, agg_cap)
-                    break
-                except OverflowError:
-                    if attempt == _WIDENS:
-                        raise
-                    agg_cap *= 4
-            return WindowResult(("sessions", em.t),
-                                self.executor.materialize(b))
+            with METRICS.span("driver.window"):
+                chunks = [ch.staged for ch in em.chunks]
+                cids = [ch.cid for ch in em.chunks]
+                for attempt in range(_WIDENS + 1):
+                    try:
+                        b = self.executor.execute_session_tables(
+                            chunks, SessionState.key, dt, cids, agg_cap)
+                        break
+                    except OverflowError:
+                        if attempt == _WIDENS:
+                            raise
+                        agg_cap *= 4
+                return WindowResult(("sessions", em.t),
+                                    self.executor.materialize(b))
         bid = em.to_batch()
         rel = self.executor._driving_relation()
         caps = {rel: _pow2_bucket(len(bid["__session"]))}
