@@ -35,6 +35,11 @@ def round_up(n: int, m: int | None = None) -> int:
     return ((n + m - 1) // m) * m
 
 
+def staged_dtype(arr: np.ndarray) -> np.dtype:
+    """The dtype a host column stages as: int64 narrows to int32."""
+    return np.dtype(np.int32) if arr.dtype == np.int64 else arr.dtype
+
+
 def staged_numpy(cols: Mapping[str, np.ndarray], capacity: int | None = None,
                  rebase_ts: bool = True,
                  alloc: Callable[[np.dtype, int], np.ndarray] | None = None):
@@ -56,8 +61,7 @@ def staged_numpy(cols: Mapping[str, np.ndarray], capacity: int | None = None,
         arr = np.asarray(arr)
         if arr.ndim != 1:
             raise ValueError(f"column {name} is not 1-D")
-        dt = np.dtype(np.int32) if arr.dtype == np.int64 else arr.dtype
-        dst = alloc(dt, capacity)
+        dst = alloc(staged_dtype(arr), capacity)
         base = 0
         if arr.dtype == np.int64 and rebase_ts and arr.size:
             mn = native.min_i64(arr) if n >= _NATIVE_MIN_ROWS else int(arr.min())
@@ -77,6 +81,10 @@ def _np_dtype(dt: torch.dtype) -> np.dtype:
     return torch.empty(0, dtype=dt).numpy().dtype
 
 
+def torch_dtype(dt: np.dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dt)).dtype
+
+
 @dataclass
 class Batch:
     """Fixed-capacity columnar batch with validity mask."""
@@ -87,32 +95,55 @@ class Batch:
     @classmethod
     def from_numpy(cls, cols: Mapping[str, np.ndarray],
                    capacity: int | None = None, device=None,
-                   rebase_ts: bool = True) -> "Batch":
+                   rebase_ts: bool = True,
+                   out: "Batch | None" = None) -> "Batch":
         """Pad host columns to ``capacity`` rows on ``device`` (``None`` →
         ``cuda``).  For the card, columns are staged straight into pinned
-        host buffers and copied without blocking the host."""
+        host buffers and copied without blocking the host.  ``out``, a
+        Batch on ``device`` with the staged columns' names and dtypes (say,
+        rows of a larger buffer), takes the rows in place of new device
+        tensors, and is returned."""
         dev = resolve_device(device)
         if dev.type == "cpu":
-            out, valid = staged_numpy(cols, capacity, rebase_ts)
-            return cls({k: torch.from_numpy(v) for k, v in out.items()},
-                       torch.from_numpy(valid))
-        pinned = []
+            host, valid = staged_numpy(cols, capacity, rebase_ts)
+            src = {k: torch.from_numpy(v) for k, v in host.items()}
+            if out is None:
+                return cls(src, torch.from_numpy(valid))
+        else:
+            pinned = []
 
-        def alloc(dt, n):
-            t = torch.empty(n, dtype=torch.from_numpy(np.empty(0, dt)).dtype,
-                            pin_memory=True)
-            pinned.append(t)
-            return t.numpy()
+            def alloc(dt, n):
+                t = torch.empty(n, dtype=torch_dtype(dt), pin_memory=True)
+                pinned.append(t)
+                return t.numpy()
 
-        out, valid = staged_numpy(cols, capacity, rebase_ts, alloc=alloc)
-        columns = {k: t.to(dev, non_blocking=True)
-                   for k, t in zip(out, pinned)}
-        n = int(valid.sum())
-        return cls(columns, torch.arange(len(valid), device=dev) < n)
+            host, valid = staged_numpy(cols, capacity, rebase_ts,
+                                       alloc=alloc)
+            src = dict(zip(host, pinned))
+            if out is None:
+                return cls({k: t.to(dev, non_blocking=True)
+                            for k, t in src.items()},
+                           torch.arange(len(valid), device=dev)
+                           < int(valid.sum()))
+        staged = {k: t.dtype for k, t in src.items()}
+        held = {k: t.dtype for k, t in out.columns.items()}
+        if out.capacity != len(valid) or held != staged:
+            raise ValueError(f"out holds {out.capacity} rows of {held}, "
+                             f"not {len(valid)} of {staged}")
+        for k, t in src.items():
+            out.columns[k].copy_(t, non_blocking=True)
+        torch.lt(torch.arange(len(valid), device=dev), int(valid.sum()),
+                 out=out.valid)
+        return out
 
     @property
     def capacity(self) -> int:
         return self.valid.shape[0]
+
+    def rows(self, lo: int, hi: int) -> "Batch":
+        """Rows ``[lo, hi)`` as a Batch of views (no copy)."""
+        return Batch({k: t[lo:hi] for k, t in self.columns.items()},
+                     self.valid[lo:hi])
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return self.columns[name]

@@ -5,9 +5,11 @@
 Host columns → fixed-capacity device Batches → the plan run eagerly on the
 device → host materialization with timestamp restore and the exact f64 sink
 columns.  A window is either one set of Batches (``execute_batches``) or a
-list of per-epoch Batches staged once and concatenated on the device
-(``execute_epochs``, the range windows' path).  Static relations (q13's
-``side_input``) are staged on the device once (``statics()``) and merged
+list of per-epoch Batches staged once (``execute_epochs``, the range
+windows' path): epochs that lie end to end in one buffer per column, as
+``StreamDriver.stage_epochs`` lays them out, form the window as a view of
+that buffer, and any others concatenate on the device.  Static relations
+(q13's ``side_input``) are staged on the device once (``statics()``) and merged
 into every window's tables.  Each window reads its overflow and escape flags in one
 host sync; an escape (duplicate build keys, slot overflow in a fused pass,
 or an int64 column too wide to rebase to int32) reruns the plan with the
@@ -39,11 +41,13 @@ Every window is counted in ``utils.metrics.METRICS`` (windows, execute
 seconds), as in the reference, and every read of a window's flags in
 ``host_syncs``.  Spans (``METRICS.span``, recorded only while tracing)
 mark the executor's parts: ``execute`` (a whole call), ``execute.form``
-(the concatenation that forms a window), ``execute.lower`` (the plan's
-compilation and first lowering: the dispatch of its operations),
+(the view or concatenation that forms a window), ``execute.lower`` (the
+plan's compilation and first lowering: the dispatch of its operations),
 ``execute.flags`` (the flags read: the host blocked on the card) and
 ``execute.fallback`` (an escape's rerun and its flags read); ``emit`` (a
-whole ``materialize``) and ``emit.sink`` (``materialize_columns``).
+whole ``materialize``) and ``emit.sink`` (``materialize_columns``).  The
+counters ``execute.form_views`` and ``execute.form_copies`` count the
+multi-epoch windows formed as a view and by a copy.
 """
 
 from __future__ import annotations
@@ -145,6 +149,26 @@ def _run_plan_consts_fast(plan, agg_capacity: int, chunks: list[Batch],
     return Batch(cols, total > 0), kernels.any_flag(*over)
 
 
+def _end_to_end(ts: list[torch.Tensor]) -> torch.Tensor | None:
+    """``ts`` joined as one view where they already lie end to end in one
+    storage, as ``StreamDriver.stage_epochs`` lays out consecutive epochs:
+    each 1-D, contiguous and of one dtype, each starting where the one
+    before ends, the first and the last in one storage (so every one
+    between lies in it too).  None otherwise."""
+    first = ts[0]
+    if (ts[-1].untyped_storage().data_ptr()
+            != first.untyped_storage().data_ptr()):
+        return None
+    dtype = first.dtype
+    start = end = first.data_ptr()
+    for t in ts:
+        if (t.data_ptr() != end or t.dtype is not dtype or t.ndim != 1
+                or not t.is_contiguous()):
+            return None
+        end += t.nbytes
+    return first.as_strided(((end - start) // first.element_size(),), (1,))
+
+
 @dataclass
 class LocalExecutor:
     spec: QuerySpec
@@ -200,11 +224,15 @@ class LocalExecutor:
                        check_overflow: bool = True) -> Batch:
         """Run the plan over a window formed from device-resident per-epoch
         Batches of equal capacities: each relation's columns and ``valid``
-        concatenate on the device (one ``torch.cat`` each), a one-epoch
-        window takes its epoch's Batches as they stand, and the executor's
-        ``statics()`` join them.  The aggregate capacity is the
-        reference's: epochs × the largest per-epoch capacity + the span
-        margin, what ``execute_batches`` computes on the concatenated
+        join, as one view where the epochs' tensors lie end to end in one
+        storage (``_end_to_end``; counted in ``execute.form_views``), else
+        by one ``torch.cat`` each (a window with any such copy counts in
+        ``execute.form_copies``).  A one-epoch window takes its epoch's
+        Batches as they stand, and the executor's ``statics()`` join them.
+        The plan only reads its input tables, so the staged epochs stay as
+        they are for the windows that share them.  The aggregate capacity
+        is the reference's: epochs × the largest per-epoch capacity + the
+        span margin, what ``execute_batches`` computes on the joined
         window."""
         caps = tuple(sorted(
             (rel, b.capacity) for rel, b in epoch_tables[0].items()))
@@ -215,11 +243,23 @@ class LocalExecutor:
             if len(epoch_tables) == 1:
                 merged = dict(epoch_tables[0])
             else:
+                copied = False
+
+                def join(ts):
+                    nonlocal copied
+                    view = _end_to_end(ts)
+                    if view is not None:
+                        return view
+                    copied = True
+                    return torch.cat(ts)
+
                 merged = {rel: Batch(
-                    {c: torch.cat([et[rel].columns[c] for et in epoch_tables])
+                    {c: join([et[rel].columns[c] for et in epoch_tables])
                      for c in b.columns},
-                    torch.cat([et[rel].valid for et in epoch_tables]))
+                    join([et[rel].valid for et in epoch_tables]))
                     for rel, b in epoch_tables[0].items()}
+                METRICS.count("execute.form_views", int(not copied))
+                METRICS.count("execute.form_copies", int(copied))
         tables = {**self.statics(), **merged}
         return self._run(tables, agg_cap, check_overflow,
                          lambda: f"w={len(epoch_tables)}, caps={caps}")
@@ -327,11 +367,11 @@ class LocalExecutor:
         capacity was exceeded."""
         return self.execute_batches(self.prepare_window(tables, capacities))
 
-    def stage_chunk(self, cols: dict[str, np.ndarray],
-                    capacity: int) -> Batch:
+    def stage_chunk(self, cols: dict[str, np.ndarray], capacity: int,
+                    out: Batch | None = None) -> Batch:
         """One epoch's columns → a device-resident Batch of ``capacity``
-        rows."""
-        return Batch.from_numpy(cols, capacity, self.device)
+        rows (into ``out``'s tensors when given: ``Batch.from_numpy``)."""
+        return Batch.from_numpy(cols, capacity, self.device, out=out)
 
     @METRICS.spanned("execute")
     def execute_session_tables(self, chunks: list[Batch], key: str,

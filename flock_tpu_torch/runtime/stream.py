@@ -6,10 +6,12 @@ processing-time (global) windows and session windows, with q13's side
 input staged once per driver.
 
 Range windows stage every epoch on the device once, at uniform per-epoch
-capacities, and concatenate a window's epochs on the device
+capacities, end to end in one device buffer per relation and column, so
+that a window of consecutive epochs is a view of those buffers
 (``LocalExecutor.execute_epochs``): overlapping hopping and sliding windows
-reuse their epochs without another transfer.  On overflow the per-epoch
-capacities double, every epoch is staged again and the window retries.
+share their epochs without another transfer or copy.  On overflow the
+per-epoch capacities double, every epoch is staged again into new buffers
+and the window retries.
 Row-count windows pack the driving relation's rows on the host.
 Processing-time windows (q12) group arrival epochs: each epoch's projected
 driving table is staged once (``prestage`` stages them all ahead of the
@@ -37,8 +39,9 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
-from flock_tpu_torch.batch import Batch, round_up
+from flock_tpu_torch.batch import Batch, round_up, staged_dtype, torch_dtype
 from flock_tpu_torch.config import CONFIG
 from flock_tpu_torch.datagen.native_gen import nexmark_generate_partition
 from flock_tpu_torch.datagen.nexmark import NexmarkConfig
@@ -573,6 +576,20 @@ def window_epoch_ranges(spec: QuerySpec, seconds: int,
     raise ValueError(kind)
 
 
+def _ring(epochs: list[dict], rel: str, cap: int, device) -> Batch | None:
+    """An unfilled Batch of ``len(epochs) × cap`` rows with relation
+    ``rel``'s columns as every epoch stages them, or None where the epochs
+    differ in their columns' names, order or staged dtypes."""
+    layouts = {tuple((c, staged_dtype(np.asarray(a)))
+                     for c, a in e[rel].items()) for e in epochs}
+    if len(layouts) != 1:
+        return None
+    n = len(epochs) * cap
+    return Batch({c: torch.empty(n, dtype=torch_dtype(dt), device=device)
+                  for c, dt in layouts.pop()},
+                 torch.empty(n, dtype=torch.bool, device=device))
+
+
 class StreamDriver:
     def __init__(self, spec: QuerySpec, seconds: int,
                  side_input: dict | None = None,
@@ -638,21 +655,32 @@ class StreamDriver:
 
     def stage_epochs(self, epochs: list[dict], caps: dict[str, int]
                      ) -> list[dict[str, Batch]]:
-        """Every epoch's window relations on the device, once each; the
-        host's time per epoch in ``METRICS`` (``stage.epoch_s`` over
+        """Every epoch's window relations on the device, once each, laid
+        end to end: each column of a relation, and its ``valid`` mask, is
+        one device tensor of ``len(epochs) × cap`` rows, and epoch ``e``'s
+        Batch is its rows ``[e·cap, (e+1)·cap)``, so that
+        ``LocalExecutor.execute_epochs`` forms a window of consecutive
+        epochs as a view.  A relation whose epochs differ in their columns'
+        names or staged dtypes takes a tensor per epoch.  The host's time
+        per epoch in ``METRICS`` (``stage.epoch_s`` over
         ``stage.epochs``)."""
+        rings = {rel: _ring(epochs, rel, cap, self.executor.device)
+                 for rel, cap in caps.items()}
         staged = []
-        for e in epochs:
+        for i, e in enumerate(epochs):
             with METRICS.timer("stage.epoch_s"):
-                staged.append({rel: self.executor.stage_chunk(e[rel], cap)
-                               for rel, cap in caps.items()})
+                staged.append({
+                    rel: self.executor.stage_chunk(
+                        e[rel], cap, None if rings[rel] is None
+                        else rings[rel].rows(i * cap, (i + 1) * cap))
+                    for rel, cap in caps.items()})
             METRICS.count("stage.epochs")
         return staged
 
     def _run_ranges(self, epochs) -> list[WindowResult]:
-        """Stage each epoch on the device ONCE; windows concatenate there
-        (``LocalExecutor.execute_epochs``), so hopping windows reuse their
-        overlapping epochs without another transfer."""
+        """Stage each epoch on the device ONCE, end to end; each window is
+        a view of its epochs (``LocalExecutor.execute_epochs``), so hopping
+        windows share their overlapping epochs without another transfer."""
         caps = self.epoch_caps(epochs)
         staged = self.stage_epochs(epochs, caps)
         out = []

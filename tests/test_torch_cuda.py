@@ -517,9 +517,9 @@ def test_gather_every_probe_on_one_slot(dev):
 
 
 def test_execute_epochs_on_the_card_equals_cpu(dev):
-    """q5's hopping windows through ``execute_epochs`` (the epochs
-    concatenated on the device): the card's device output equals the CPU
-    path's in capacity, validity and every valid row."""
+    """q5's hopping windows through ``execute_epochs`` (the epochs staged
+    end to end, each window a view of them): the card's device output
+    equals the CPU path's in capacity, validity and every valid row."""
     epochs = generate_epochs(15, 20_000, 1)
     outs = []
     for device in (dev, "cpu"):
@@ -533,6 +533,40 @@ def test_execute_epochs_on_the_card_equals_cpu(dev):
         assert bool(c.valid.any())
         for name, col in c.columns.items():
             assert torch.equal(g.columns[name].cpu()[c.valid], col[c.valid])
+
+
+def test_windows_on_the_card_are_views_equal_to_the_copy(dev):
+    """q5's hopping windows on the card: the epochs staged end to end hold
+    the bytes of the epochs staged one by one; each window is a view of
+    them (``execute.form_views``), and its device output equals, bit for
+    bit, the copy that the epochs staged one by one take
+    (``execute.form_copies``)."""
+    from flock_tpu_torch.utils.metrics import METRICS
+
+    epochs = generate_epochs(15, 20_000, 1)
+    driver = StreamDriver(get_query(5), 15, device=dev)
+    ex, caps = driver.executor, driver.epoch_caps(epochs)
+    ring = driver.stage_epochs(epochs, caps)
+    single = [{r: ex.stage_chunk(e[r], c) for r, c in caps.items()}
+              for e in epochs]
+    for a, b in zip(ring, single):
+        for rel in caps:
+            assert torch.equal(a[rel].valid, b[rel].valid)
+            _same(a[rel].columns, b[rel].columns)
+
+    def forms():
+        return tuple(METRICS.counters.get(f"execute.form_{k}", 0)
+                     for k in ("views", "copies"))
+
+    before = forms()
+    ranges = [rng for _, rng in driver.epoch_ranges(epochs)]
+    for rng in ranges:
+        got = ex.execute_epochs([ring[t] for t in rng])
+        want = ex.execute_epochs([single[t] for t in rng])
+        assert got.capacity == want.capacity
+        assert torch.equal(got.valid, want.valid)
+        _same(got.columns, want.columns)
+    assert [a - b for a, b in zip(forms(), before)] == [len(ranges)] * 2
 
 
 @pytest.mark.parametrize("q,win", [(5, None), (7, None), (8, None),
