@@ -1,8 +1,11 @@
 """The comparison that decides ``correct``, and its control.
 
-A window's rows are compared with the reference's as multisets of rows of
-exact integers: ``rows_unequal`` counts the rows that one side has and the
-other lacks, so an exact match reads 0.
+A window's rows are compared with the reference's as multisets of rows,
+over the columns the reference returns, each value exactly: an integer
+column as an int64, a float column (where either side's is one) by the
+bits of its f64 value, so that an average the sink divides from exact
+sums reads unequal at its last bit.  ``rows_unequal`` counts the rows that
+one side has and the other lacks, so an exact match reads 0.
 
 The control breaks the configuration's delivery guarantee, exactly-once
 windows: it is the reference, put in the program's place, over a window
@@ -15,21 +18,32 @@ from __future__ import annotations
 import numpy as np
 
 
-def _rows(cols: dict, names: list[str]) -> np.ndarray:
+def _exact(v, as_float: bool) -> np.ndarray:
+    """A column's values as int64s that are equal where the values are:
+    an f64's bits, or the integer."""
+    if as_float:
+        return np.asarray(v, np.float64).view(np.int64)
+    return np.asarray(v).astype(np.int64)
+
+
+def _rows(cols: dict, names: list[str], floats: set) -> np.ndarray:
     n = len(cols[names[0]]) if names else 0
     if not n:
         return np.empty((0, len(names)), np.int64)
-    return np.stack([np.asarray(cols[c]).astype(np.int64) for c in names], 1)
+    return np.stack([_exact(cols[c], c in floats) for c in names], 1)
 
 
 def rows_unequal(got: dict | None, want: dict) -> int:
     """Rows in one multiset and not the other (0 when the row sets are
     equal); every wanted row when ``got`` is missing or lacks a column."""
     names = sorted(want)
-    b = _rows(want, names)
+    floats = {c for c in names if np.asarray(want[c]).dtype.kind == "f"
+              or got is not None and c in got
+              and np.asarray(got[c]).dtype.kind == "f"}
+    b = _rows(want, names, floats)
     if got is None or any(c not in got for c in names):
         return len(b) + (len(next(iter(got.values()))) if got else 0)
-    a = _rows(got, names)
+    a = _rows(got, names, floats)
     if not len(a) and not len(b):
         return 0
     both = np.concatenate([a, b])

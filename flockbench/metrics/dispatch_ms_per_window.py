@@ -7,4 +7,4 @@ from flockbench import spans
 
 
 def read(rec):
-    return spans.ms_per_window("execute.form", "execute.lower", own=True)
+    return spans.ms_per_window(rec, "execute.form", "execute.lower", own=True)

@@ -6,4 +6,4 @@ from flockbench import spans
 
 
 def read(rec):
-    return spans.ms_per_window("emit.copy")
+    return spans.ms_per_window(rec, "emit.copy")

@@ -8,4 +8,4 @@ from flockbench import spans
 
 
 def read(rec):
-    return spans.ms_per_window("emit.compact", "emit.sink")
+    return spans.ms_per_window(rec, "emit.compact", "emit.sink")

@@ -7,4 +7,4 @@ from flockbench import spans
 
 
 def read(rec):
-    return spans.ms_per_window("execute.flags")
+    return spans.ms_per_window(rec, "execute.flags")

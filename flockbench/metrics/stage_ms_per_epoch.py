@@ -7,4 +7,4 @@ from flockbench import spans
 
 
 def read(rec):
-    return spans.stage_ms_per_epoch()
+    return spans.stage_ms_per_epoch(rec)

@@ -2,9 +2,10 @@
 epochs that lives on the card.
 
 This is the only module of the benchmark that imports the program.  It
-takes from it the driver, its staging, its executor (the window's entry and
-its sink) and the executor's counters; the stream, the reference and the
-comparison are the benchmark's own.
+takes from it the query registry, the driver, its staging, its executor
+(the window's entry and its sink) and the program's counters and spans;
+the stream, the windows, the reference and the comparison are the
+benchmark's own.
 
 A window runs as ``StreamDriver._run_ranges`` runs it once its epochs are
 staged: ``executor.execute_epochs`` over the window's resident epoch
@@ -17,22 +18,54 @@ that window.
 from __future__ import annotations
 
 import contextlib
+import re
 import time
 
-# the program's queries by the benchmark's query names
-_NEXMARK = {"q5": 5, "q7": 7}
+# the program's counters that the readers take from a run's record
+COUNTERS = ("execute.form_views", "execute.form_copies", "stage.epochs")
+TIMERS = ("stage.epoch_s",)
 
 
 def query_spec(query: str):
-    if query == "ysb":
-        from flock_tpu_torch.queries.ysb import ysb_query
-        return ysb_query()
+    """The program's ``QuerySpec`` of the benchmark's query name: ``ysb``,
+    or ``q<n>`` from the program's NEXMark registry.  Raises
+    ``ValueError`` with a one-line reason for a query the program lacks."""
     from flock_tpu_torch.queries.nexmark import get_query
-    return get_query(_NEXMARK[query])
+    from flock_tpu_torch.queries.ysb import ysb_query
+
+    m = re.fullmatch(r"q(\d+)", query)
+    try:
+        spec = ysb_query() if query == "ysb" else \
+            get_query(int(m.group(1))) if m else None
+    except NotImplementedError:
+        spec = None
+    if spec is None:
+        raise ValueError(f"query {query!r}: flock_tpu_torch has no such "
+                         f"query (names: ysb, q<n> of its NEXMark registry)")
+    return spec
+
+
+def _registry():
+    from flock_tpu_torch.utils.metrics import METRICS
+    return METRICS
+
+
+def registry() -> dict:
+    """The program's span totals and the counters and timers of
+    ``COUNTERS`` and ``TIMERS``, as they stand: a span ``s`` as
+    ``s:count``, ``s:total_s`` and ``s:self_s``."""
+    reg = _registry()
+    out = {k: reg.counters.get(k, 0) for k in COUNTERS}
+    out.update((k, reg.timings.get(k, 0.0)) for k in TIMERS)
+    for name, got in list(reg.spans.items()):
+        for part, v in zip(("count", "total_s", "self_s"), got):
+            out[f"{name}:{part}"] = v
+    return out
 
 
 class Program:
-    """The driver over one cell's ring, staged on ``device``."""
+    """The driver over one cell's ring, staged on ``device``, running
+    ``query`` over the query's own windows."""
 
     def __init__(self, query: str, epochs: list[dict], device):
         from flock_tpu_torch.runtime.stream import StreamDriver
@@ -66,15 +99,16 @@ class Program:
         return rows, t1 - t0, time.perf_counter() - t1
 
     def counters(self) -> dict:
-        """The program's own counts: the executor's host syncs, and its
-        METRICS window counter and execute timer of this query."""
-        from flock_tpu_torch.utils.metrics import METRICS
-
+        """The program's own counts as they stand: the executor's host
+        syncs, its METRICS window counter and execute timer of this query,
+        and ``registry()``."""
+        reg = _registry()
         q = f"q{self.spec.number}"
         return {
             "host_syncs": self.executor.host_syncs,
-            "windows": METRICS.counters.get(f"{q}.windows", 0),
-            "execute_s": METRICS.timings.get(f"{q}.execute_s", 0.0),
+            "windows": reg.counters.get(f"{q}.windows", 0),
+            "execute_s": reg.timings.get(f"{q}.execute_s", 0.0),
+            **registry(),
         }
 
     def release(self) -> None:

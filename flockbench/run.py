@@ -6,7 +6,9 @@ from the root of a checkout.  The cell, its configuration and its metrics
 come from ``BENCHMARK.json``; each is found by name in files of its own:
 ``flockbench/configs/<config>.json`` (the deployment: the generator's
 sizes, the windows, the guarantees), ``flockbench/traffic/<traffic>.json``
-(the query, the length of the ring of epochs, the profiled stretch),
+(the query, the relations it reads, the length of the ring of epochs, the
+profiled stretch, and where it gives one, the window, which then takes
+precedence over the configuration's),
 ``flockbench/reference/<query>.py`` (the plain reference) and
 ``flockbench/metrics/<metric>.py`` (each per-layer metric's reader; a
 metric named ``<metric>.<part>``, one quantity split by the end-to-end
@@ -26,7 +28,9 @@ A run:
    synchronize; ``window_p95_ms`` the 95th percentile of the windows' times
    from dispatch to their rows on the host.
 3. ``--trace 1`` then profiles a stretch of windows and reports the
-   per-layer metrics in place of the end-to-end ones.
+   per-layer metrics in place of the end-to-end ones.  The program's
+   counters and span totals over the stretch, and over set-up, are kept
+   in the run's ``Record`` for the readers.
 4. Once the window has closed, the program's state is freed and every
    window's rows are compared with the plain reference's.
 
@@ -35,7 +39,10 @@ The last line of standard output is one JSON object (``correct``,
 ``breakdown``, and last ``checks``: each number compared with its limit).
 Without a card (or with fewer than the cell asks for) the run prints no
 result and exits 2; a run that finds ``jax``, ``jaxlib``, ``flax`` or
-``flock_tpu`` loaded exits 3.
+``flock_tpu`` loaded exits 3; a cell the harness cannot run (a query the
+program lacks, one whose windows are not ranges of epochs, a window other
+than the query's own in the program, a window or relation missing) exits
+4 with one line that names the query and why.
 """
 
 from __future__ import annotations
@@ -88,6 +95,14 @@ class Cell:
     def query(self) -> str:
         return self.traffic["query"]
 
+    @property
+    def window(self) -> list | None:
+        """The cell's window: the traffic file's ``window`` where it gives
+        one, else the configuration's ``windows[query]``.  ``admit`` holds
+        it to the query's own window in the program."""
+        return self.traffic.get("window") \
+            or self.config.get("windows", {}).get(self.query)
+
     def reference(self):
         return _module(os.path.join(self.root, "flockbench", "reference",
                                     f"{self.query}.py"),
@@ -108,21 +123,68 @@ def load_cell(name: str, root: str = ROOT) -> Cell:
     def mine(m):
         return name in m.get("workloads", [name])
 
-    return Cell(
+    cell = Cell(
         name=name, chips=wl["chips"],
         config=_json(os.path.join(root, cf["file"])),
         traffic=_json(os.path.join(root, "flockbench", "traffic",
                                    f"{wl['traffic']}.json")),
         end_to_end=[m for m in bench["end_to_end"] if mine(m)],
         per_layer=[m for m in bench["per_layer"] if mine(m)], root=root)
+    try:
+        admit(cell)
+    except ValueError as e:
+        raise ValueError(f"cell {name}: {e}") from None
+    return cell
+
+
+def admit(cell: Cell) -> None:
+    """Raises ``ValueError``, in one line that names the query and why,
+    where the harness cannot run ``cell``: a query the program lacks or
+    whose windows are not ranges of epochs, no plain reference, no window,
+    a window other than the query's own in the program, no window in the
+    ring, or a relation the query reads that the traffic file does not
+    name."""
+    from flockbench.program import query_spec
+
+    q, window = cell.query, cell.window
+    ring = cell.traffic["ring_epochs"]
+    spec = query_spec(q)
+    try:
+        ranges = window_ranges(list(spec.window), ring)
+    except ValueError as e:
+        raise ValueError(f"query {q!r}: {e}") from None
+    if not os.path.exists(os.path.join(cell.root, "flockbench", "reference",
+                                       f"{q}.py")):
+        raise ValueError(f"query {q!r}: no plain reference "
+                         f"flockbench/reference/{q}.py")
+    if not window:
+        raise ValueError(f"query {q!r}: no window: neither the traffic "
+                         f"file's 'window' nor the configuration's "
+                         f"'windows' names one")
+    if tuple(window) != spec.window:
+        raise ValueError(f"query {q!r}: the cell's window {window} is not "
+                         f"the query's own in flock_tpu_torch, "
+                         f"{list(spec.window)}")
+    if not ranges:
+        raise ValueError(f"query {q!r}: a ring of {ring} epochs holds no "
+                         f"{window} window")
+    missing = sorted(set(spec.relations) - {"side_input"}
+                     - set(cell.traffic["relations"]))
+    if missing:
+        raise ValueError(f"query {q!r} reads {missing}, which the traffic "
+                         f"file's 'relations' do not name")
 
 
 # -- windows -----------------------------------------------------------------
 
 def window_ranges(window: list, epochs: int) -> list[tuple[list, list]]:
     """(epochs of the window, epochs it advances the stream by) of every
-    window over a ring of ``epochs`` epochs, in stream order."""
-    kind, w = window[0], window[1]
+    window over a ring of ``epochs`` epochs, in stream order: an
+    element-wise window is one epoch, and advances the stream by it."""
+    kind = window[0]
+    if kind == "elementwise":
+        return [([t], [t]) for t in range(epochs)]
+    w = window[1]
     if kind == "tumbling":
         return [(list(range(t, t + w)), list(range(t, t + w)))
                 for t in range(0, epochs - w + 1, w)]
@@ -130,7 +192,8 @@ def window_ranges(window: list, epochs: int) -> list[tuple[list, list]]:
         h = window[2]
         return [(list(range(t, t + w)), list(range(t + w - h, t + w)))
                 for t in range(0, epochs - w + 1, h)]
-    raise ValueError(f"no window of kind {kind}")
+    raise ValueError(f"{kind} windows are not ranges of epochs that the "
+                     f"benchmark forms")
 
 
 def window_tables(epochs: list[dict], rng: list[int]) -> dict:
@@ -148,10 +211,9 @@ def make_ring(cell: Cell, seed: int) -> tuple[list[dict], list[int], list]:
 
     cfg = cell.config
     ring = cell.traffic["ring_epochs"]
-    window = cfg["windows"][cell.query]
     relations = tuple(cell.traffic["relations"])
     epochs, events = gen.generate(cfg, seed, ring, relations)
-    windows = window_ranges(window, ring)
+    windows = window_ranges(cell.window, ring)
     if "campaign" in relations:
         # the campaign table rides with the first epoch of each window
         table = gen.campaign_table(cfg["generator"])
@@ -175,11 +237,21 @@ class Record:
     execute_s: list = field(default_factory=list)
     emit_s: list = field(default_factory=list)
     counters: dict = field(default_factory=dict)
+    # the program's counters and span totals (``program.registry``) over
+    # set-up and over the profiled stretch
+    setup_counters: dict = field(default_factory=dict)
+    stretch: dict = field(default_factory=dict)
     profile: dict | None = None
     profile_windows: int = 0
     least_bytes: float = 0.0
     peaks: dict | None = None
     setup_s: float = 0.0
+
+
+def _delta(before: dict, after: dict) -> dict:
+    """``after`` less ``before``, key by key (a key new in ``after``
+    counts from 0)."""
+    return {k: v - before.get(k, 0) for k, v in after.items()}
 
 
 def _sync(device) -> None:
@@ -219,12 +291,13 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
     import torch
 
     from flockbench.compare import checks, correct, rows_unequal
-    from flockbench.program import Program
+    from flockbench.program import Program, registry
 
     rec = Record()
     t0 = time.perf_counter()
     epochs, events, windows = make_ring(cell, seed)
     t_gen = time.perf_counter() - t0
+    r0 = registry()
     prog = Program(cell.query, epochs, device)
     got = [rng for _, rng in prog.ranges]
     if got != [rng for rng, _ in windows]:
@@ -235,6 +308,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
     prog.warm_up()
     _sync(device)
     rec.setup_s = time.perf_counter() - t0
+    rec.setup_counters = _delta(r0, registry())
     advance = [sum(events[t] for t in adv) for _, adv in windows]
 
     # the timed window
@@ -265,12 +339,14 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
     rec.seconds = time.perf_counter() - start
     rec.windows = i
     c1 = prog.counters()
-    rec.counters = {k: c1[k] - c0[k] for k in c0}
+    rec.counters = _delta(c0, c1)
 
     if traced:
         n = int(cell.traffic["profile_windows"])
         order = [(i + k) % len(windows) for k in range(n)]
+        s0 = prog.counters()
         rec.profile, more = _profile_stretch(prog, order, device)
+        rec.stretch = _delta(s0, prog.counters())
         rec.profile_windows = n
         outs += more
 
@@ -346,6 +422,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
         notes["h2d_copies_in_stretch"] = rec.profile["h2d_copies"]
         notes["kernel_s_in_stretch"] = rec.profile["kernel_s"]
         notes["least_bytes_per_window"] = rec.least_bytes
+    if traced:
+        notes["windows_formed_in_stretch"] = {
+            k: rec.stretch.get(k, 0) for k in ("execute.form_views",
+                                               "execute.form_copies")}
     return line, notes, rec
 
 
@@ -384,7 +464,11 @@ def main(argv=None) -> int:
 
     import torch
 
-    cell = load_cell(args.workload)
+    try:
+        cell = load_cell(args.workload)
+    except ValueError as e:
+        print(f"flockbench: {e}", file=sys.stderr)
+        return 4
     found = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if found < cell.chips:
         print(f"flockbench: {args.workload} needs {cell.chips} CUDA "

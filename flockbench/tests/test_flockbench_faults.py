@@ -11,12 +11,19 @@ at a tiny size, once for each fault a one-card cell can have:
 * ``altered``: one answer altered where it is produced (the sink's first
   row).
 
+The join cell added by new files alone (q4 over element-wise windows,
+``fbhelp.added_cell``) is held to ``stale`` and ``altered`` too, and to
+``winner``: one winning bid dropped from each window's input (the highest
+bid that falls inside its auction's run), so that its auction's winning
+price, and its category's average, change.
+
 (The exchange between cards is no fault of a one-card cell.)"""
 
+import numpy as np
 import pytest
 import torch
 
-from fbhelp import CELLS, tiny_cell
+from fbhelp import CELLS, Q4_JOIN, added_cell, tiny_cell
 from flock_tpu_torch.batch import Batch
 from flock_tpu_torch.runtime.executor import LocalExecutor
 from flockbench.run import run_cell
@@ -61,7 +68,35 @@ def _altered(monkeypatch):
     monkeypatch.setattr(LocalExecutor, "materialize", materialize)
 
 
-FAULTS = {"stale": _stale, "half": _half, "altered": _altered}
+def _winner(monkeypatch):
+    orig = LocalExecutor.execute_epochs
+
+    def execute_epochs(self, epoch_tables, check_overflow=True):
+        cut = []
+        for et in epoch_tables:
+            auc, bid = et["auction"], et["bid"]
+            a = {c: v.numpy() for c, v in auc.columns.items()}
+            b = {c: v.numpy() for c, v in bid.columns.items()}
+            live = np.flatnonzero(auc.valid.numpy())
+            by_id = dict(zip(a["a_id"][live].tolist(), live.tolist()))
+            best, drop = -1, None
+            for j in np.flatnonzero(bid.valid.numpy()).tolist():
+                k = by_id.get(int(b["auction"][j]))
+                if k is not None \
+                        and a["a_date_time"][k] <= b["b_date_time"][j] \
+                        <= a["expires"][k] and b["price"][j] > best:
+                    best, drop = int(b["price"][j]), j
+            valid = bid.valid.clone()
+            if drop is not None:
+                valid[drop] = False
+            cut.append(dict(et, bid=Batch(bid.columns, valid)))
+        return orig(self, cut, check_overflow)
+
+    monkeypatch.setattr(LocalExecutor, "execute_epochs", execute_epochs)
+
+
+FAULTS = {"stale": _stale, "half": _half, "altered": _altered,
+          "winner": _winner}
 
 
 def _half_changes_an_answer(cell, seed) -> bool:
@@ -111,3 +146,13 @@ def test_a_broken_path_is_not_correct(monkeypatch, name, fault):
 def test_the_unbroken_path_is_correct(name):
     line, _, _ = run_cell(tiny_cell(name), 11, 0.2, False, device="cpu")
     assert line["correct"] is True
+
+
+@pytest.mark.parametrize("fault", ["winner", "altered", "stale"])
+def test_a_broken_join_path_is_not_correct(monkeypatch, tmp_path, fault):
+    cell = added_cell(tmp_path, Q4_JOIN)
+    FAULTS[fault](monkeypatch)
+    line, _, _ = run_cell(cell, 11, 0.2, False, device="cpu")
+    assert line["correct"] is False
+    assert line["failed"] > 0
+    assert line["checks"]["rows_unequal"]["value"] > 0

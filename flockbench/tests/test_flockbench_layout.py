@@ -8,7 +8,7 @@ import shutil
 
 import pytest
 
-from fbhelp import tiny_cell
+from fbhelp import Q4_JOIN, added_cell, tiny_cell
 from flockbench.run import ROOT, load_cell, run_cell
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -124,9 +124,17 @@ def test_every_listed_metric_is_read(name):
     from flockbench.run import Record
 
     cell = tiny_cell(name)
+    span = {f"{s}:{part}": v for s in ("execute", "execute.form",
+                                       "execute.lower", "execute.flags",
+                                       "emit.copy", "emit.compact",
+                                       "emit.sink")
+            for part, v in (("count", 4), ("total_s", 0.02),
+                            ("self_s", 0.01))}
     rec = Record(seconds=1.0, windows=4, events=10, latencies_s=[0.1] * 4,
                  execute_s=[0.05] * 4, emit_s=[0.05] * 4,
                  counters={"host_syncs": 4, "windows": 4, "execute_s": 0.2},
+                 setup_counters={"stage.epochs": 20, "stage.epoch_s": 1.0},
+                 stretch=span,
                  profile={"window_s": 1.0, "busy_s": 0.5, "kernel_s": 0.4,
                           "d2h_bytes": 4e6},
                  profile_windows=4, least_bytes=1e8,
@@ -134,3 +142,62 @@ def test_every_listed_metric_is_read(name):
     for m in cell.per_layer:
         v = cell.reader(m["name"]).read(rec)
         assert isinstance(v, float), m["name"]
+
+
+def test_a_join_cell_needs_no_edit(tmp_path):
+    """q4 over element-wise windows, auction ⋈ bid, in a copy of the
+    benchmark that gains only new files and entries, runs as correct: its
+    query comes from the program's registry, its window and relations from
+    the traffic file, its reference from ``reference/q4.py``."""
+    cell = added_cell(tmp_path, Q4_JOIN)
+    assert (cell.query, cell.window) == ("q4", ["elementwise"])
+    line, _, rec = run_cell(cell, 2**31 + 21, 0.3, False, device="cpu")
+    assert line["correct"] is True and line["failed"] == 0
+    assert line["attempted"] >= Q4_JOIN["ring_epochs"]
+    assert all(c["value"] == 0 for c in line["checks"].values())
+    assert rec.counters["host_syncs"] == rec.windows
+
+
+def test_the_traffic_files_window_takes_precedence(tmp_path):
+    """The traffic file's window is the one held to the query's own: q7,
+    tumbling 10 s in ``nexmark-10M`` and in the program, is refused at
+    load where the traffic file asks for hopping 4 s / 2 s windows, and
+    loads where it names the program's window though the configuration
+    names another."""
+    q7 = {"query": "q7", "relations": ["bid"], "ring_epochs": 20,
+          "profile_windows": 4}
+    added_cell(tmp_path, dict(q7, window=["tumbling", 10]))
+    cfg = os.path.join(tmp_path, "flockbench", "configs",
+                       "nexmark-added-cfg.json")
+    with open(cfg) as f:
+        c = json.load(f)
+    c["windows"]["q7"] = ["hopping", 4, 2]
+    with open(cfg, "w") as f:
+        json.dump(c, f)
+    assert load_cell("nexmark-added", root=str(tmp_path)).window \
+        == ["tumbling", 10]
+    with pytest.raises(ValueError, match=r"q7.*\['hopping', 4, 2\] is not "
+                       r"the query's own.*\['tumbling', 10\]"):
+        added_cell(tmp_path, dict(q7, window=["hopping", 4, 2]),
+                   name="nexmark-hop")
+
+
+@pytest.mark.parametrize("traffic,why", [
+    ({"query": "q11"}, "q11.*session windows are not ranges of epochs"),
+    ({"query": "q12"}, "q12.*global windows are not ranges of epochs"),
+    ({"query": "q99"}, "q99.*flock_tpu_torch has no such query"),
+    ({"query": "ysb5"}, "ysb5.*flock_tpu_torch has no such query"),
+    ({"query": "q9"}, "q9.*no plain reference"),
+    ({"query": "q4", "window": None}, "q4.*no window"),
+    ({"query": "q4", "window": ["sliding", 4, 2]},
+     r"q4.*\['sliding', 4, 2\] is not the query's own.*\['elementwise'\]"),
+    ({"query": "q4", "relations": ["bid"]}, r"q4.*\['auction'\]"),
+])
+def test_a_cell_the_harness_cannot_run_fails_at_load(tmp_path, traffic, why):
+    t = dict(Q4_JOIN, **traffic)
+    if t["window"] is None:
+        del t["window"]
+    with pytest.raises(ValueError, match=why) as e:
+        added_cell(tmp_path, t, name="nexmark-bad")
+    assert str(e.value).startswith("cell nexmark-bad: query ")
+    assert "\n" not in str(e.value)

@@ -1,7 +1,8 @@
 """The per-layer metrics that read the program's own spans and staging
-counters (``flockbench/spans.py``): a traced run reports each, an untraced
-run records no span, and before any traced run each reader returns
-None."""
+counters (``flockbench/spans.py``) from the run's ``Record``: a traced run
+reports each, an untraced run records no span, and on a record without
+spans each reader returns None, in a fresh process and after a traced
+run alike."""
 
 import json
 import os
@@ -9,7 +10,7 @@ import subprocess
 import sys
 
 from fbhelp import tiny_cell
-from flockbench.run import ROOT, run_cell
+from flockbench.run import ROOT, Record, run_cell
 
 NEW = ("dispatch_ms_per_window", "flags_wait_ms_per_window",
        "emit_copy_ms_per_window", "emit_host_ms_per_window",
@@ -24,12 +25,35 @@ def _spans() -> dict:
 def test_traced_run_reports_the_span_metrics():
     cell = tiny_cell("ysb-campaigns")
     assert set(NEW) <= {m["name"] for m in cell.per_layer}
-    line, _, rec = run_cell(cell, 2**31 + 11, 0.2, True, device="cpu")
+    line, notes, rec = run_cell(cell, 2**31 + 11, 0.2, True, device="cpu")
     assert line["correct"] is True
     for name in NEW:
         v = line["metrics"][name]["value"]
         assert isinstance(v, float) and v > 0, name
     assert line["metrics"]["host_syncs_per_window"]["value"] == 1.0
+    # the record holds the stretch's spans: one execute span a profiled
+    # window, each formed as a view of its staged epochs
+    n = rec.profile_windows
+    assert rec.stretch["execute:count"] == n
+    assert rec.stretch["execute.flags:count"] == n
+    assert rec.stretch["execute.form_views"] == n
+    assert rec.stretch["execute.form_copies"] == 0
+    assert notes["windows_formed_in_stretch"] == {
+        "execute.form_views": n, "execute.form_copies": 0}
+    assert rec.setup_counters["stage.epochs"] == notes["ring_epochs"]
+
+
+def test_readers_return_none_on_a_record_without_spans():
+    """After a traced run in this process filled the program's registry,
+    a record without spans (an untraced run's) still reads None."""
+    run_cell(tiny_cell("ysb-campaigns"), 3, 0.2, True, device="cpu")
+    assert _spans()
+    cell = tiny_cell("ysb-campaigns")
+    _, _, rec = run_cell(cell, 4, 0.2, False, device="cpu")
+    assert not any(k.endswith(":count") and v for k, v in rec.stretch.items())
+    for m in NEW:
+        assert cell.reader(m).read(rec) is None, m
+        assert cell.reader(m).read(Record()) is None, m
 
 
 def test_untraced_run_records_no_span():

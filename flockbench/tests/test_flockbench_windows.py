@@ -72,6 +72,8 @@ def test_seed_changes_the_draws_not_the_sizes(dataset):
 
 
 def test_window_ranges():
+    assert window_ranges(["elementwise"], 3) == [([0], [0]), ([1], [1]),
+                                                 ([2], [2])]
     assert window_ranges(["hopping", 10, 5], 15) == [
         (list(range(0, 10)), list(range(5, 10))),
         (list(range(5, 15)), list(range(10, 15)))]

@@ -1,9 +1,11 @@
 """The traced run's profile of a bounded stretch of windows, read from the
 profiler's Chrome trace.
 
-``torch.profiler`` records the host's operations and the benchmark's spans
+``torch.profiler`` records the host's operations, the benchmark's spans
 (``record_function``: ``stretch`` around the whole stretch, ``window``,
-``execute`` and ``emit`` around each window's parts) and the card's
+``execute`` and ``emit`` around each window's parts), the program's own
+spans inside those (``execute.form``, ``.lower``, ``.flags``,
+``.fallback``; ``emit.copy``, ``.compact``, ``.sink``) and the card's
 operations (kernels, copies, sets).  ``summarize`` reduces them to what the
 per-layer readers and the ``breakdown`` need:
 
@@ -16,8 +18,8 @@ per-layer readers and the ``breakdown`` need:
   back inside the stretch;
 * ``device_ops``: the ten device operations that took most time;
 * ``idle_gaps``: the card's idle time inside the stretch by what the host
-  was doing then (the innermost benchmark span and the innermost host
-  operation over the middle of each gap), the ten largest.
+  was doing then (the innermost benchmark or program span and the
+  innermost host operation over the middle of each gap), the ten largest.
 """
 
 from __future__ import annotations
@@ -25,7 +27,10 @@ from __future__ import annotations
 import json
 from collections import defaultdict
 
-SPANS = ("stretch", "window", "execute", "emit")
+SPANS = ("stretch", "window", "execute", "emit",
+         # the program's spans (``flock_tpu_torch.utils.metrics``)
+         "execute.form", "execute.lower", "execute.flags", "execute.fallback",
+         "emit.copy", "emit.compact", "emit.sink")
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
