@@ -16,7 +16,7 @@ and the script exits non-zero:
    as the clean duplicate-faithful join: three columns gathered and seven
    carried to the fan-out capacity in one launch), and on adversarial shapes off the main path (K1 and K2: every key on one
    slot, keys K1's window misses, ragged and tiny inputs, no valid row,
-   unaligned columns, K2 on both sides of its shared-memory limit; K3: one
+   unaligned columns, K2 on both sides of its two shared-memory limits; K3: one
    hot slot, all misses, uniform keys, keys at the int32 extremes, a span
    of 1, n in {1, 3, 4, 5, 1003}, unaligned probe columns, 8-byte, mixed
    and eight columns, a ragged carry), exact equality on every output row,
@@ -786,8 +786,11 @@ def _adversarial_cases(slots, present, m, probe, pvalid, pred, k1_aggs,
     behind K1's window and before m, a span below the window, n below a
     tile and not a multiple of 4, n = 1, no valid row, columns off a
     16-byte boundary (element loads), and K2 at the largest capacity of its
-    shared-memory variant and the smallest of its global one."""
-    from flock_tpu_torch.ops.dense_agg import dense_agg, dense_agg_plain
+    lane-private variant and the smallest of its block-shared one past it,
+    and at the largest of the block-shared and the smallest of its global
+    one."""
+    from flock_tpu_torch.ops.dense_agg import (LANES_BYTES, SHARED_BYTES,
+                                               dense_agg, dense_agg_plain)
     from flock_tpu_torch.ops.join_agg import join_agg_plain, join_aggregate
 
     dev = present.device
@@ -865,8 +868,14 @@ def _adversarial_cases(slots, present, m, probe, pvalid, pred, k1_aggs,
        kvalid[:ncat], {"v": vals[:ncat]}, cat_aggs, 128)
     k2("uniform", t(rng.integers(0, 300_000, nk).astype(np.int32)), kvalid,
        {"v": vals}, all_aggs, 300_000)
-    for name, cap in (("cap_shared", 48 * 1024 // 28),
-                      ("cap_global", 48 * 1024 // 28 + 1)):
+    # all_aggs take 24 bytes a slot: the lane-private variant's 32 copies
+    # fit its budget up to 42 slots, the block-shared one's single copy 48 KB
+    # up to 2048
+    lanes_cap = LANES_BYTES // (32 * 24)
+    for name, cap in (("cap_lanes", lanes_cap),
+                      ("cap_lanes_plus1", lanes_cap + 1),
+                      ("cap_shared", SHARED_BYTES // 24),
+                      ("cap_global", SHARED_BYTES // 24 + 1)):
         k2(name, t(rng.integers(0, cap, nk).astype(np.int32)), kvalid,
            {"v": vals}, all_aggs, cap)
     for name, rows in (("n_odd", 1003), ("n_1", 1)):

@@ -2,8 +2,8 @@
 // quad loads, slot initialisation and flushing, and the atomics that apply
 // a value — alone, or combined over the lanes of a warp that hold one slot.
 //
-// Combining lanes (K2).  Rows whose keys fall on one slot (one of q4's five
-// categories) would each make an atomic on the same address, and those
+// Combining lanes (K2's block-shared and global variants).  Rows whose keys
+// fall on one slot would each make an atomic on the same address, and those
 // serialise.  __match_any_sync groups the lanes of a warp that hold the same
 // slot; __reduce_{add,min,max}_sync under the group's mask combine their
 // int32 values; one lane per group makes the atomic.  An int64 sum of int32
@@ -11,10 +11,13 @@
 // hi = v >> 16 (arithmetic, in [-2¹⁵, 2¹⁵)) and lo = v & 0xffff, so 32 lanes
 // sum to |Σhi| ≤ 2²⁰ and Σlo < 2²¹ with no wrap.  Reductions under different
 // masks run as one pass of the warp per group, so this pays only when a
-// warp holds few slots; measured on the H100 (PERF.md, PR 3), combining 32
-// distinct slots made build slotting 2.7x slower, and K1 was faster with
-// plain atomics at every timed shape that forms pairs, one hot slot
-// included.
+// warp holds few slots (kFewSlots in dense_agg.cu); measured on the H100
+// (PERF.md), combining 32 distinct slots made build slotting 2.7x
+// slower, and K1 was faster with plain atomics at every timed shape that
+// forms pairs, one hot slot included.  The match itself is paid on every
+// row; K2's small tables (q4's five categories, YSB's 100 campaigns) take
+// the lane-private variant instead, whose lanes never share an address and
+// so need neither match nor combine (dense_agg.cu).
 
 #pragma once
 

@@ -10,6 +10,13 @@ no locality escape: the kernel handles any key in the span.
 
 On q4's path K2 slots the auction table by ``a_id`` (max of the taken
 columns and the ``dups`` flag) and computes the per-category sum + count.
+
+The kernel accumulates in one of three variants, which
+:func:`accumulator_variant` picks from the capacity and the aggregates'
+widths alone: ``lanes`` (32 lane-private copies of every slot in shared
+memory: YSB's count over 128 slots), ``shared`` (one copy of every slot in
+shared memory: q4's per-category sum and count) and ``global`` (atomics
+into the outputs: build slotting).
 """
 
 from __future__ import annotations
@@ -35,6 +42,18 @@ _MAX_AGGS = 8
 # int32 entries of the per-block minima, and so the most blocks one launch
 # takes (132 SMs x 4 resident blocks on the H100 fit)
 _GRID_MAX = 1024
+# the accumulation variants, by their codes in csrc/dense_agg.cu (enum Variant)
+VARIANTS = ("global", "shared", "lanes")
+# shared-memory bytes of one copy of a slot's accumulator, by aggregate; the
+# row count takes 4 more
+_SLOT_BYTES = {"count_sum": 4, "sum": 8, "min": 4, "max": 4}
+# the block-shared table's limit: what a block takes without opting in
+SHARED_BYTES = 48 * 1024
+# the budget of the lane-private table (32 copies of every slot), measured on
+# the H100 (PERF.md): YSB's count (16 KB) gains 2.1x at 100 M rows,
+# while q4's per-category pass (48 KB, ~250 k rows) lost 15 % to the
+# table's initialisation and flush, and keeps the block-shared variant
+LANES_BYTES = 32 * 1024
 
 
 def min_valid(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -95,12 +114,25 @@ def _check(keys, valid, agg_cols, aggs, out_capacity):
         raise ValueError(f"dense_agg: out_capacity {out_capacity}")
 
 
+def accumulator_variant(out_capacity: int, aggs) -> str:
+    """The variant one launch of K2 accumulates in, from ``out_capacity``
+    and the kinds of ``aggs`` (their widths) alone: ``lanes`` where 32
+    copies of every slot fit ``LANES_BYTES``, else ``shared`` where one
+    copy fits ``SHARED_BYTES``, else ``global``."""
+    slot = 4 + sum(_SLOT_BYTES.get(fn, 0) for _, fn, _ in aggs)
+    if out_capacity * 32 * slot <= LANES_BYTES:
+        return "lanes"
+    if out_capacity * slot <= SHARED_BYTES:
+        return "shared"
+    return "global"
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("dense_agg")
     if not getattr(lib, "_flock_argtypes", False):
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
         lib.flock_dense_agg.argtypes = [vp, vp, i64, i32, i32, vp, vp, vp, vp,
-                                        vp, vp, i32, vp]
+                                        vp, vp, i32, i32, vp]
         lib.flock_dense_agg.restype = ctypes.c_int
         lib._flock_argtypes = True
     return lib
@@ -162,17 +194,21 @@ def _launch(keys, valid, agg_cols, aggs, out_capacity: int):
             out[name] = acc
             packed += (AGG_CODES[fn], agg_cols[c].data_ptr(), acc.data_ptr())
     out["__key"] = key
+    variant = accumulator_variant(out_capacity, aggs)
     lib = _lib()
     with _build.on_device(dev):
         rc = lib.flock_dense_agg(
             keys.data_ptr(), valid.data_ptr(), keys.shape[0], out_capacity,
             len(packed) // 3, (ctypes.c_int64 * len(packed))(*packed),
             cnt.data_ptr(), key.data_ptr(), ovalid.data_ptr(), flags.data_ptr(),
-            scratch.data_ptr(), _GRID_MAX,
+            scratch.data_ptr(), _GRID_MAX, VARIANTS.index(variant),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "dense_agg")
     dense_agg.launches += 1
+    dense_agg.variant_launches[variant] += 1
     return out, ovalid, flags[0]
 
 
 dense_agg.launches = 0
+# launches by accumulation variant, so that a run shows which one it took
+dense_agg.variant_launches = dict.fromkeys(VARIANTS, 0)

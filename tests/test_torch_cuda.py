@@ -14,7 +14,8 @@ import torch
 
 from flock_tpu_torch import plan
 from flock_tpu_torch.ops import kernels
-from flock_tpu_torch.ops.dense_agg import dense_agg, dense_agg_plain
+from flock_tpu_torch.ops.dense_agg import (accumulator_variant, dense_agg,
+                                           dense_agg_plain)
 from flock_tpu_torch.ops.gather import gather, gather_plain
 from flock_tpu_torch.ops.join_agg import join_agg_plain, join_aggregate
 from flock_tpu_torch.plan import Conj
@@ -23,8 +24,9 @@ from flock_tpu_torch.queries.nexmark import get_query
 from flock_tpu_torch.queries.ysb import run_ysb
 from flock_tpu_torch.runtime.stream import StreamDriver, generate_epochs
 from torch_kernel_cases import (K1_AGGS, K1_CASES, K1_I64_AGGS, K1_I64_CASES,
-                                K1_TERMS, K2_AGGS, K2_CASES, K3_CASES, k1_case,
-                                k1_i64_case, k1_i64_numpy, k2_case, k3_case)
+                                K1_TERMS, K2_AGGS, K2_CASES, K2_LANES_CAP,
+                                K3_CASES, k1_case, k1_i64_case, k1_i64_numpy,
+                                k2_aggs, k2_case, k3_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -48,12 +50,13 @@ def _same(a: dict, b: dict):
         assert torch.equal(a[k], b[k]), k
 
 
-@pytest.mark.parametrize("cap", [1, 128, 4096, 300_000])
+@pytest.mark.parametrize("cap", [1, 42, 43, 128, 4096, 300_000])
 @pytest.mark.parametrize("valid_p", [0.0, 0.7, 1.0])
 def test_dense_agg_kernel_equals_plain(dev, cap, valid_p):
-    """Both kernel variants (block-private shared memory for small
-    capacities, global atomics past 48 KB), every aggregate, negative
-    values, overflowing keys, no valid row."""
+    """The three kernel variants (lane-private copies in shared memory up
+    to 42 slots of these 24 bytes, one block-shared copy to 48 KB, global
+    atomics past it), every aggregate, negative values, overflowing keys,
+    no valid row."""
     rng = np.random.default_rng(cap)
     n = 50_000
     keys = torch.from_numpy(rng.integers(3, 3 + 2 * cap, n).astype(np.int32)).to(dev)
@@ -143,22 +146,35 @@ def test_join_agg_int64_max_equals_plain(dev, case, offset):
     np.testing.assert_array_equal(got["c"].cpu().numpy(), cnt)
 
 
+# the variant each boundary case of K2 takes (every other case: its
+# capacity's)
+K2_CASE_VARIANTS = {"cap_lanes": "lanes", "cap_lanes_plus1": "shared",
+                    "cap_shared": "shared", "cap_global": "global",
+                    "ysb_count": "lanes"}
+
+
 @pytest.mark.parametrize("case", K2_CASES)
 def test_dense_agg_adversarial_equals_plain(dev, case):
-    """Both variants on both sides of the shared-memory limit, every lane on
-    one key, ragged and tiny n, no valid row (m the sentinel), and the
+    """Every variant on both sides of its limit, every lane on one key,
+    ragged and tiny n, no valid row (m the sentinel), YSB's count, and the
     duplicate flag."""
     keys, valid, cols, cap = k2_case(case, n=500_000, cap=300_000,
                                      seed=len(case))
-    args = (_on(dev, keys), _on(dev, valid), _on(dev, cols), K2_AGGS, cap)
+    args = (_on(dev, keys), _on(dev, valid), _on(dev, cols), k2_aggs(case),
+            cap)
+    variant = accumulator_variant(cap, k2_aggs(case))
+    assert variant == K2_CASE_VARIANTS.get(case, variant)
+    before = dict(dense_agg.variant_launches)
     got, gvalid, ovf = dense_agg(*args)
+    assert {v: n - before[v] for v, n in dense_agg.variant_launches.items()} \
+        == {v: int(v == variant) for v in before}
     want, wvalid, wovf = dense_agg_plain(*args)
     _same(got, want)
     assert torch.equal(gvalid, wvalid) and bool(ovf) == bool(wovf)
     assert bool(got["d"]) == bool((want["c"] > 1).any())
 
 
-@pytest.mark.parametrize("cap", [128, 300_000])
+@pytest.mark.parametrize("cap", [K2_LANES_CAP, 128, 300_000])
 def test_dense_agg_unaligned_columns_equal_plain(dev, cap):
     keys, valid, cols, _ = k2_case("uniform", n=100_001, cap=cap)
     args = (_on(dev, keys, 1), _on(dev, valid, 1), _on(dev, cols, 1),
@@ -189,7 +205,8 @@ def test_kernels_initialise_every_output(dev, monkeypatch):
                torch.tensor(int(m), dtype=torch.int32, device=dev),
                _on(dev, probe), _on(dev, pvalid), "k", Conj(K1_TERMS),
                K1_AGGS)
-    for cap in (128, span):   # K2's shared-memory and global variants
+    # K2's lane-private, block-shared and global variants
+    for cap in (K2_LANES_CAP, 128, span):
         k2_args = (_on(dev, keys % cap), _on(dev, valid), _on(dev, cols),
                    K2_AGGS, cap)
         for kernel, plain, args in ((join_aggregate, join_agg_plain, k1_args),
@@ -592,7 +609,12 @@ def test_windowed_queries_on_the_card_equal_cpu(dev, q, win):
 
 def test_ysb_on_the_card_equals_cpu(dev):
     cfg = YsbConfig(seconds=20, events_per_second=200_000, threads=2)
-    gpu, cpu = run_ysb(cfg, device=dev), run_ysb(cfg, device="cpu")
+    lanes = dense_agg.variant_launches["lanes"]
+    gpu = run_ysb(cfg, device=dev)
+    # each window's count per campaign is one launch of the lane-private
+    # variant
+    assert dense_agg.variant_launches["lanes"] - lanes == len(gpu)
+    cpu = run_ysb(cfg, device="cpu")
     assert len(gpu) == len(cpu) == 2
     for g, c in zip(gpu, cpu):
         for name in ("campaign_id", "count"):

@@ -14,6 +14,7 @@ from flock_tpu.pallas import factored
 from flock_tpu_torch.ops import kernels
 from flock_tpu_torch.ops import dense_agg as dense_agg_module
 from flock_tpu_torch.ops.dense_agg import dense_agg
+from torch_kernel_cases import K2_AGGS, K2_LANES_CAP, K2_SHARED_CAP
 
 torch.set_num_threads(1)
 
@@ -163,3 +164,46 @@ def test_more_aggregates_than_one_launch_holds(n_aggs, monkeypatch):
     _assert_same(got, ref_out, ["__key", "c"] + [n for *_, n in aggs[1:]])
     np.testing.assert_array_equal(gvalid.numpy(), np.asarray(ref_valid))
     assert not bool(ovf)
+
+
+# q4's build slotting: max of three taken columns and the duplicate count
+# over 240,000 auctions + the join's 8,192-slot margin
+SLOTTING_AGGS = [("a", "max", "a"), ("e", "max", "e"), ("cat", "max", "cat"),
+                 (None, "count", "__dupcnt")]
+COUNT_ONLY = [(None, "count", "count")]
+PER_CATEGORY = [("final", "sum", "sum_final"), (None, "count", "cnt")]
+# the largest count-only capacity whose 32 copies of a 4-byte slot fit
+LANES_COUNT_CAP = dense_agg_module.LANES_BYTES // (32 * 4)
+
+
+@pytest.mark.parametrize("cap,aggs,want", [
+    (128, COUNT_ONLY, "lanes"),                      # YSB's count
+    (128, COUNT_ONLY + [(None, "dups", "d")], "lanes"),
+    (128, PER_CATEGORY, "shared"),                   # q4's per-category pass
+    (8, [("price", "max", "maxprice")], "lanes"),    # q7's max on one key
+    (LANES_COUNT_CAP, COUNT_ONLY, "lanes"),
+    (LANES_COUNT_CAP + 1, COUNT_ONLY, "shared"),
+    (K2_LANES_CAP, K2_AGGS, "lanes"),                # every aggregate kind
+    (K2_LANES_CAP + 1, K2_AGGS, "shared"),
+    (K2_SHARED_CAP, K2_AGGS, "shared"),
+    (K2_SHARED_CAP + 1, K2_AGGS, "global"),
+    (248_192, SLOTTING_AGGS, "global"),              # build slotting
+    (36_808_192, [(None, "count", "num")], "global"),  # q5's count
+])
+def test_accumulator_variant(cap, aggs, want):
+    """The variant K2 accumulates in is a function of the capacity and the
+    aggregates' widths alone: lane-private copies where 32 of every slot
+    fit the budget, one block-shared copy within 48 KB, else global
+    atomics; ``count`` and ``dups`` take no accumulator of their own."""
+    assert dense_agg_module.accumulator_variant(cap, aggs) == want
+
+
+def test_cpu_path_counts_no_variant_launch():
+    """The CPU path takes the plain version and counts no launch of any
+    variant; the counter holds one entry per variant."""
+    before = dict(dense_agg.variant_launches)
+    keys, valid, cols = _inputs(11, span=256)
+    dense_agg(*_torch(keys, valid, cols), COUNT_ONLY, 4096)
+    assert dense_agg.variant_launches == before
+    assert set(before) == set(dense_agg_module.VARIANTS) \
+        == {"lanes", "shared", "global"}

@@ -20,8 +20,8 @@ from flock_tpu_torch.ops import kernels
 from flock_tpu_torch.ops.dense_agg import dense_agg
 from flock_tpu_torch.ops.join_agg import join_aggregate
 from flock_tpu_torch.queries.nexmark import get_query
-from torch_kernel_cases import (K1_AGGS, K1_CASES, K1_TERMS, K2_AGGS,
-                                K2_CASES, k1_case, k2_case)
+from torch_kernel_cases import (K1_AGGS, K1_CASES, K1_TERMS, K2_CASES,
+                                k1_case, k2_aggs, k2_case)
 
 torch.set_num_threads(1)
 
@@ -65,13 +65,13 @@ def test_k1_plain_matches_pallas_on_adversarial_inputs(case):
 def test_k2_plain_matches_reference_on_adversarial_inputs(case):
     """Every slot, and the duplicate flag against the reference's count."""
     keys, valid, cols, cap = k2_case(case)
-    aggs = [a for a in K2_AGGS if a[1] != "dups"]
+    aggs = [a for a in k2_aggs(case) if a[1] != "dups"]
     ref = ref_kernels.dense_group_aggregate(
         {"k": jnp.asarray(keys), **{c: jnp.asarray(a) for c, a in cols.items()}},
         jnp.asarray(valid), "k", aggs, cap)
     got, gvalid, ovf = dense_agg(_t(keys), _t(valid),
-                                 {c: _t(a) for c, a in cols.items()}, K2_AGGS,
-                                 cap)
+                                 {c: _t(a) for c, a in cols.items()},
+                                 k2_aggs(case), cap)
     assert not bool(ovf) and not bool(ref[2])
     np.testing.assert_array_equal(gvalid.numpy(), np.asarray(ref[1]))
     for name in [o for _, _, o in aggs]:

@@ -127,12 +127,18 @@ def k1_i64_numpy(slots, present, m, probe, valid):
     return omax, cnt
 
 
-# every aggregate kind: 28 bytes of shared memory per slot (sum 8, count 4,
-# count_sum 4, min 4, max 4), so K2's block-private variant takes caps up to
-# 48 KB / 28 = 1755 slots and the global one from 1756
+# every aggregate kind: 24 bytes of shared memory per copy of a slot (sum 8,
+# the row count 4, count_sum 4, min 4, max 4).  K2's lane-private variant
+# (32 copies of every slot within its 32 KB budget, ops/dense_agg.py
+# LANES_BYTES) takes caps up to 32 KB / (32 x 24) = 42, its block-shared one
+# (one copy within 48 KB) up to 48 KB / 24 = 2048, and the global-atomics
+# one from 2049
 K2_AGGS = [(None, "count", "c"), ("v", "count_sum", "cs"), ("w", "sum", "s"),
            ("v", "min", "mn"), ("v", "max", "mx"), (None, "dups", "d")]
-K2_SHARED_CAP = 48 * 1024 // 28
+K2_LANES_CAP = 32 * 1024 // (32 * 24)
+K2_SHARED_CAP = 48 * 1024 // 24
+# YSB's count per campaign: the row count (and the duplicate flag) alone
+K2_COUNT_AGGS = [(None, "count", "c"), (None, "dups", "d")]
 
 K2_CASES = (
     "one_slot",          # every key equal: every lane collides
@@ -141,26 +147,41 @@ K2_CASES = (
     "n_1",
     "all_invalid",       # m stays the sentinel, every slot invalid
     "unique",            # ascending unique keys (build slotting): no duplicate
+    "cap_lanes",         # the largest capacity of the lane-private variant
+    "cap_lanes_plus1",   # the smallest of the block-shared one past it
     "cap_shared",        # the largest capacity of the shared-memory variant
     "cap_global",        # the smallest of the global-atomics variant
+    "ysb_count",         # YSB's count (K2_COUNT_AGGS): 100 live slots of 128,
+                         # a third of the rows valid, n one past a multiple of 4
 )
+
+
+def k2_aggs(name: str) -> list:
+    """The aggregates case ``name`` runs with."""
+    return K2_COUNT_AGGS if name == "ysb_count" else K2_AGGS
 
 
 def k2_case(name: str, n: int = 8192, cap: int = 4096, seed: int = 0):
     """(keys, valid, cols, capacity).  ``w`` (summed) is non-negative: the
     reference's dense sums are exact only for those."""
     rng = np.random.default_rng(seed)
-    n = {"n_odd": 1003, "n_1": 1}.get(name, n)
-    cap = {"cap_shared": K2_SHARED_CAP,
-           "cap_global": K2_SHARED_CAP + 1}.get(name, cap)
+    n = {"n_odd": 1003, "n_1": 1, "ysb_count": n + 1}.get(name, n)
+    cap = {"cap_lanes": K2_LANES_CAP,
+           "cap_lanes_plus1": K2_LANES_CAP + 1,
+           "cap_shared": K2_SHARED_CAP,
+           "cap_global": K2_SHARED_CAP + 1,
+           "ysb_count": 128}.get(name, cap)
     if name == "one_slot":
         keys = np.full(n, 77)
     elif name == "unique":
         keys = 5 + np.arange(n)
         cap = max(cap, n)
+    elif name == "ysb_count":
+        keys = 3 + rng.integers(0, 100, n)
     else:
         keys = 3 + rng.integers(0, cap, n)
-    valid = rng.random(n) < 0.9 if name != "all_invalid" else np.zeros(n, bool)
+    valid_p = {"all_invalid": 0.0, "ysb_count": 1 / 3}.get(name, 0.9)
+    valid = rng.random(n) < valid_p
     cols = {"v": rng.integers(-(10**9), 10**9, n).astype(np.int32),
             "w": rng.integers(0, 10**6, n).astype(np.int32)}
     return keys.astype(np.int32), valid, cols, cap
