@@ -134,11 +134,7 @@ and the script exits non-zero:
    q9, q6 and SQL q4 rerun the window with the duplicate-faithful
    fallback, SQL q4's rows equal to q4's — and q3 over that window with
    every person row repeated, which reruns too;
-5. the benchmark harness (``flock_tpu_torch/tools/bench.py``) at its
-   ``--all`` sizes from the bench size, 2 repeats: fifteen records
-   (compute-only, feed-inclusive and stacked rows/s), none failed, q4's
-   rows and windows those of the q4 run above;
-6. the card's name and power limit, then one JSON result line.
+5. the card's name and power limit, then one JSON result line.
 
 Each phase prints its seconds (a ``phase <name>`` line).
 
@@ -3561,37 +3557,6 @@ def phase_stacked(epochs: list, card_line: str, launches: dict) -> None:
             flush=True)
 
 
-def phase_bench(card_line: str) -> None:
-    """The harness (``flock_tpu_torch/tools/bench.py``) at its ``--all``
-    sizes from the bench size (4 s x 4 M events/s), 2 repeats, into an
-    artifact in a temporary directory; each record printed.  No record may
-    hold an error, and q4's rows and windows must be the ``q4`` run's on
-    the same stream."""
-    import tempfile
-
-    from flock_tpu_torch.tools import bench
-
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "bench.json")
-        rc = bench.main(["--all", "--seconds", str(BENCH_SECONDS), "--eps",
-                         str(BENCH_EPS), "--repeats", "2", "--out", out])
-        with open(out) as f:
-            doc = json.load(f)
-    for r in doc["results"]:
-        name = r["query"] if r["query"] == "ysb" else f"q{r['query']}"
-        print(f"bench {name}: " + json.dumps({**r, "card": card_line}),
-              flush=True)
-    failed = [r["query"] for r in doc["results"] if "error" in r]
-    if rc or failed or len(doc["results"]) != 15:
-        raise AssertionError(f"bench: rc {rc}, failed {failed}, "
-                             f"{len(doc['results'])} records")
-    q4 = next(r for r in doc["results"] if r["query"] == 4)
-    mine = (q4["rows_in"], q4["windows"])
-    if mine != (RECORDS["q4"]["rows_in"], RECORDS["q4"]["windows"]):
-        raise AssertionError(f"bench q4: rows and windows {mine}, the q4 "
-                             f"run's {RECORDS['q4']}")
-
-
 def kernels_line(cases: list[dict], launches: dict[str, dict]) -> dict:
     """One entry per kernel: its cases on the main path summed, its
     launches over every query's main-path run (and per query)."""
@@ -3744,8 +3709,6 @@ def main() -> int:
     print(json.dumps(kernels_line(cases, launches)), flush=True)
     with phase_seconds("duplicates"):
         phase_duplicates()
-    with phase_seconds("bench"):
-        phase_bench(card_line)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -57,7 +57,8 @@ from flock_tpu_torch.plan import (Aggregate, Compact, Filter,
                                   fused_local_pass, fused_replay,
                                   fused_supported)
 from flock_tpu_torch.queries.nexmark import QuerySpec
-from flock_tpu_torch.runtime.executor import OverflowError
+from flock_tpu_torch.runtime import stream as runtime_stream
+from flock_tpu_torch.runtime.executor import OverflowError, agg_capacity_for
 from flock_tpu_torch.utils.metrics import METRICS
 
 
@@ -493,9 +494,8 @@ class DistributedExecutor:
         fallback lowering counts in ``fallback_runs``.  Raises
         OverflowError when a static capacity was exceeded."""
         if agg_capacity is None:
-            agg_capacity = self.agg_capacity or (
-                max(b.capacity for st in staged for b in st.values())
-                + CONFIG.agg_span_margin)
+            agg_capacity = self.agg_capacity or agg_capacity_for(
+                b.capacity for st in staged for b in st.values())
         q = f"q{self.spec.number}"
         METRICS.count(f"{q}.dist_windows")
         with METRICS.timer(f"{q}.dist_execute_s"):
@@ -546,12 +546,13 @@ class DistributedExecutor:
                          staged: list[dict[str, Batch]] | None = None
                          ) -> list[Batch]:
         """``execute_staged`` over the window's tables, staged anew at
-        doubled shard capacities after each overflow (six attempts); one
-        output Batch per local shard.  Once an attempt escaped, the later
-        ones lower on the fallback at once: wider capacities do not remove
-        a repeated build key."""
+        doubled shard capacities after each overflow (``_WIDENS`` times, as
+        the single-card driver); one output Batch per local shard.  Once an
+        attempt escaped, the later ones lower on the fallback at once:
+        wider capacities do not remove a repeated build key."""
         fallback = False
-        for attempt in range(6):
+        widens = runtime_stream._WIDENS
+        for attempt in range(widens + 1):
             if staged is None or attempt:
                 if callable(shard_tables):
                     shard_tables = shard_tables()
@@ -564,7 +565,7 @@ class DistributedExecutor:
             try:
                 return self.execute_staged(staged, fallback=fallback)
             except OverflowError:
-                if attempt == 5:
+                if attempt == widens:
                     raise
                 fallback = self.fallback_runs > runs
 

@@ -15,7 +15,7 @@ Session windows take one of the reference's two tiers:
   it on its own state — no collective.  Each epoch's rows go to the shard
   that owns their key; the shard's key range for the step is the host's
   range over those rows.  A key beyond the shards' ranges, or an emission
-  buffer too small, restarts the run with doubled spans (six attempts);
+  buffer too small, restarts the run with doubled spans (``_WIDENS`` times);
   the state is updated in place, and each shard has its own.
 * the generic label-table tier (``_dist_session_exec``): the host keeps
   ``SessionState``, every epoch's rows are staged round robin over the
@@ -35,12 +35,13 @@ from flock_tpu_torch.parallel.executor import (DistributedExecutor,
 from flock_tpu_torch.plan import referenced_columns
 from flock_tpu_torch.queries.nexmark import QuerySpec
 from flock_tpu_torch.runtime import device_session as ds
-from flock_tpu_torch.runtime.executor import (OverflowError,
-                                              materialize_columns,
+from flock_tpu_torch.runtime import stream as runtime_stream
+from flock_tpu_torch.runtime.executor import (materialize_columns,
                                               session_rows)
 from flock_tpu_torch.runtime.stream import (_SPAN_LIMIT, SessionState,
                                             StreamDriver, WindowResult,
-                                            _bucket_cap, window_epoch_ranges)
+                                            _bucket_cap, widen_aggregate,
+                                            window_epoch_ranges)
 from flock_tpu_torch.runtime.tables import (concat_relations,
                                             default_side_input,
                                             window_relations)
@@ -273,17 +274,10 @@ class DistStreamDriver:
                 dt = em.dense_tables(bucket)
         if dt is None:
             return None
-        agg_cap = max(_bucket_cap(em.n_sessions), 128)
-        for attempt in range(6):
-            try:
-                host = _dist_session_exec(
-                    self.executor, self.spec, [ch.staged for ch in em.chunks],
-                    [ch.cid for ch in em.chunks], dt, agg_cap)
-                break
-            except OverflowError:
-                if attempt == 5:
-                    raise
-                agg_cap *= 4
+        host = widen_aggregate(lambda agg_cap: _dist_session_exec(
+            self.executor, self.spec, [ch.staged for ch in em.chunks],
+            [ch.cid for ch in em.chunks], dt, agg_cap),
+            max(_bucket_cap(em.n_sessions), 128))
         return WindowResult(tag, materialize_columns(self.spec, host))
 
     def _run_session(self, epoch_parts, prestaged=None
@@ -405,7 +399,7 @@ class DistStreamDriver:
         plan = self._session_plan(epoch_parts)
         if plan is None:
             return []
-        for attempt in range(6):
+        for attempt in range(runtime_stream._WIDENS + 1):
             S_shard = plan["S_shard"] * (2 ** attempt)
             staged = prestaged if attempt == 0 and prestaged is not None \
                 else self._stage_session_epochs(plan, S_shard)

@@ -10,10 +10,11 @@ windows' path): epochs that lie end to end in one buffer per column, as
 ``StreamDriver.stage_epochs`` lays them out, form the window as a view of
 that buffer, and any others concatenate on the device.  Static relations
 (q13's ``side_input``) are staged on the device once (``statics()``) and merged
-into every window's tables.  Each window reads its overflow and escape flags in one
-host sync; an escape (duplicate build keys, slot overflow in a fused pass,
-or an int64 column too wide to rebase to int32) reruns the plan with the
-duplicate-faithful fallback and the unrebased scatter, and is counted in
+into every window's tables.  The plan is fused once, at construction.
+``_settle`` reads a window's overflow and escape flags in one host sync; an
+escape (duplicate build keys, slot overflow in a fused pass, or an int64
+column too wide to rebase to int32) reruns the plan with the
+duplicate-faithful fallback and the unrebased scatter, counted in
 ``fallback_runs``.
 
 ``execute_consts`` runs a processing-time window (q12): staged chunks and
@@ -42,7 +43,7 @@ seconds), as in the reference, and every read of a window's flags in
 ``host_syncs``.  Spans (``METRICS.span``, recorded only while tracing)
 mark the executor's parts: ``execute`` (a whole call), ``execute.form``
 (the view or concatenation that forms a window), ``execute.lower`` (the
-plan's compilation and first lowering: the dispatch of its operations),
+plan's first lowering: the dispatch of its operations),
 ``execute.flags`` (the flags read: the host blocked on the card) and
 ``execute.fallback`` (an escape's rerun and its flags read); ``emit`` (a
 whole ``materialize``) and ``emit.sink`` (``materialize_columns``).  The
@@ -62,7 +63,8 @@ from flock_tpu_torch import resolve_device
 from flock_tpu_torch.batch import TS_BASE, Batch, round_up
 from flock_tpu_torch.config import CONFIG
 from flock_tpu_torch.ops import kernels
-from flock_tpu_torch.plan import Aggregate, Scan, compile_plan
+from flock_tpu_torch.plan import (Aggregate, Node, Scan,
+                                  fuse_join_aggregates, lower)
 from flock_tpu_torch.queries.nexmark import QuerySpec
 from flock_tpu_torch.runtime.tables import default_side_input, window_relations
 from flock_tpu_torch.utils.metrics import METRICS
@@ -80,6 +82,12 @@ def _pow2_bucket(n: int) -> int:
     while c < n:
         c *= 2
     return c
+
+
+def agg_capacity_for(capacities) -> int:
+    """A window's aggregate capacity, the reference's rule: the largest of
+    ``capacities`` plus the span margin."""
+    return max(capacities) + CONFIG.agg_span_margin
 
 
 _I64_MAX, _I64_MIN = 2**63 - 1, -(2**63)
@@ -108,7 +116,8 @@ def _run_plan_consts_fast(plan, agg_capacity: int, chunks: list[Batch],
     summed, and the constants' aggregates derived from the counts.  ``m``,
     the shifts and the overflow stay on the device: a chunk's count moves
     by an index made from ``arange`` and its device offset, clamped as the
-    reference's slice start.  Returns (Batch, overflow)."""
+    reference's slice start.  Returns (Batch, overflow, escape), the escape
+    the shared clear flag: the runner has no fallback."""
     key = plan.group_keys[0]
     cap = agg_capacity
     dev = chunks[0].valid.device
@@ -146,7 +155,8 @@ def _run_plan_consts_fast(plan, agg_capacity: int, chunks: list[Batch],
                            for cnt, v in zip(cnts, vals)])
         red = per.amin(0) if fn == "min" else per.amax(0)
         cols[name] = red.to(torch.int32)
-    return Batch(cols, total > 0), kernels.any_flag(*over)
+    return (Batch(cols, total > 0), kernels.any_flag(*over),
+            kernels.false_flag(dev))
 
 
 def _end_to_end(ts: list[torch.Tensor]) -> torch.Tensor | None:
@@ -177,10 +187,12 @@ class LocalExecutor:
     side_input: dict | None = None  # q13's table; None → default_side_input()
     fallback_runs: int = 0
     host_syncs: int = 0   # reads of windows' flags on the host
+    plan: Node = field(default=None, init=False, repr=False)
     _statics: dict | None = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        self.plan = fuse_join_aggregates(self.spec.plan)
 
     def statics(self) -> dict[str, Batch]:
         """The query's static relations (q13's ``side_input``) as device
@@ -211,9 +223,8 @@ class LocalExecutor:
         static relations join them without another copy.  The aggregate
         capacity follows the window's relations, as the reference's
         ``execute_epochs``."""
-        agg_cap = self.agg_capacity or (
-            max(batches[r].capacity for r in window_relations(batches))
-            + CONFIG.agg_span_margin)
+        agg_cap = self.agg_capacity or agg_capacity_for(
+            batches[r].capacity for r in window_relations(batches))
         return self._run({**self.statics(), **batches}, agg_cap,
                          check_overflow, lambda: "caps={}".format(tuple(
                              sorted((r, b.capacity)
@@ -236,9 +247,8 @@ class LocalExecutor:
         window."""
         caps = tuple(sorted(
             (rel, b.capacity) for rel, b in epoch_tables[0].items()))
-        agg_cap = self.agg_capacity or (
-            len(epoch_tables) * max(c for _, c in caps)
-            + CONFIG.agg_span_margin)
+        agg_cap = self.agg_capacity or agg_capacity_for(
+            len(epoch_tables) * c for _, c in caps)
         with METRICS.span("execute.form"):
             if len(epoch_tables) == 1:
                 merged = dict(epoch_tables[0])
@@ -273,24 +283,46 @@ class LocalExecutor:
         with METRICS.timer(f"{q}.execute_s"):
             yield
 
+    def _lower(self, tables: dict[str, Batch], agg_cap: int,
+               fallback: bool = False):
+        """(Batch, overflow, escape) of the fused plan over one window."""
+        out = lower(self.plan, tables, agg_cap, fallback)
+        return Batch(out.cols, out.valid), out.overflow, out.escape
+
+    def _settle(self, runs: list[tuple], rerun) -> tuple[list, list]:
+        """Settle windows after their clean lowerings ``runs`` ((Batch,
+        overflow, escape) each): every flag read in ONE host sync; each
+        escaped window ``i`` lowered again by ``rerun(i)`` (None where no
+        run can escape), the reruns' overflow flags read in one more sync.
+        Returns (the outputs, the overflow flags as bools)."""
+        with METRICS.span("execute.flags"):
+            flags = torch.stack([f for _, ovf, esc in runs
+                                 for f in (ovf, esc)]).tolist()
+        self.host_syncs += 1
+        outs = [out for out, _, _ in runs]
+        overflow = flags[0::2]
+        escaped = [i for i, esc in enumerate(flags[1::2]) if esc]
+        if escaped:
+            with METRICS.span("execute.fallback"):
+                reruns = []
+                for i in escaped:
+                    self.fallback_runs += 1
+                    outs[i], ovf, _ = rerun(i)
+                    reruns.append(ovf)
+                for i, ovf in zip(escaped, torch.stack(reruns).tolist()):
+                    overflow[i] = ovf
+            self.host_syncs += 1
+        return outs, overflow
+
     def _run(self, tables: dict[str, Batch], agg_cap: int,
              check_overflow: bool, what) -> Batch:
-        """The plan over one window's tables, with the overflow and escape
-        flags read in one host sync and the fallback rerun on an escape;
+        """The plan over one window's tables, settled by ``_settle``;
         ``what()`` describes the window's capacities for an overflow."""
         with self._metered():
             with METRICS.span("execute.lower"):
-                fn = compile_plan(self.spec.plan, agg_cap)
-                out, overflow, escape = fn(tables)
-            with METRICS.span("execute.flags"):
-                overflow, escape = torch.stack([overflow, escape]).tolist()
-            self.host_syncs += 1
-            if escape:
-                self.fallback_runs += 1
-                with METRICS.span("execute.fallback"):
-                    out, overflow, _ = fn(tables, fallback=True)
-                    overflow = bool(overflow)
-                self.host_syncs += 1
+                run = self._lower(tables, agg_cap)
+            (out,), (overflow,) = self._settle(
+                [run], lambda _: self._lower(tables, agg_cap, fallback=True))
         if check_overflow and overflow:
             raise OverflowError(
                 f"q{self.spec.number}: static capacity exceeded "
@@ -322,33 +354,15 @@ class LocalExecutor:
                 for w in windows]
         if any(c != caps[0] for c in caps):
             raise ValueError(f"stacked windows need equal capacities: {caps}")
-        agg_cap = self.agg_capacity or (
-            max(windows[0][r].capacity for r in window_relations(windows[0]))
-            + CONFIG.agg_span_margin)
-        statics = self.statics()
+        agg_cap = self.agg_capacity or agg_capacity_for(
+            windows[0][r].capacity for r in window_relations(windows[0]))
+        tables = [{**self.statics(), **w} for w in windows]
         with self._metered(len(windows)):
             with METRICS.span("execute.lower"):
-                fn = compile_plan(self.spec.plan, agg_cap)
-                runs = [fn({**statics, **w}) for w in windows]
-            with METRICS.span("execute.flags"):
-                flags = torch.stack([f for _, ovf, esc in runs
-                                     for f in (ovf, esc)]).tolist()
-            self.host_syncs += 1
-            outs = [out for out, _, _ in runs]
-            overflow = flags[0::2]
-            escaped = [i for i, esc in enumerate(flags[1::2]) if esc]
-            if escaped:
-                with METRICS.span("execute.fallback"):
-                    reruns = []
-                    for i in escaped:
-                        self.fallback_runs += 1
-                        outs[i], ovf, _ = fn({**statics, **windows[i]},
-                                             fallback=True)
-                        reruns.append(ovf)
-                    for i, ovf in zip(escaped,
-                                      torch.stack(reruns).tolist()):
-                        overflow[i] = ovf
-                self.host_syncs += 1
+                runs = [self._lower(t, agg_cap) for t in tables]
+            outs, overflow = self._settle(
+                runs, lambda i: self._lower(tables[i], agg_cap,
+                                            fallback=True))
             stacked = Batch(
                 {c: torch.stack([o.columns[c] for o in outs])
                  for c in outs[0].columns},
@@ -411,11 +425,9 @@ class LocalExecutor:
         if _consts_fast_shape(plan, rel, names, key_dtype=key_dt):
             with self._metered():
                 with METRICS.span("execute.lower"):
-                    out, overflow = _run_plan_consts_fast(
+                    run = _run_plan_consts_fast(
                         plan, agg_capacity, chunks, names, vals.tolist())
-                with METRICS.span("execute.flags"):
-                    overflow = bool(overflow)
-                self.host_syncs += 1
+                (out,), (overflow,) = self._settle([run], None)
             if overflow:
                 raise OverflowError(
                     f"q{self.spec.number}: const-epoch capacity exceeded "

@@ -49,15 +49,28 @@ from flock_tpu_torch.plan import Aggregate, referenced_columns, walk
 from flock_tpu_torch.queries.nexmark import QuerySpec, get_query
 from flock_tpu_torch.runtime import device_session
 from flock_tpu_torch.runtime.executor import (LocalExecutor, OverflowError,
-                                              _pow2_bucket)
+                                              _pow2_bucket, agg_capacity_for)
 from flock_tpu_torch.runtime.payload import FragmentId, Payload
 from flock_tpu_torch.runtime.tables import (concat_relations,
                                             epoch_to_relations,
                                             window_relations)
 from flock_tpu_torch.utils.metrics import METRICS
 
-# widen-and-retry budget of one window
+# widen-and-retry budget of one window, shared by the single-card and sharded
+# stream drivers (read when a loop runs, so one patch reaches every loop)
 _WIDENS = 5
+
+
+def widen_aggregate(run, agg_cap: int):
+    """``run(agg_cap)``, retried at four times the aggregate capacity after
+    each OverflowError, ``_WIDENS`` times; the last attempt's OverflowError
+    stands."""
+    for _ in range(_WIDENS):
+        try:
+            return run(agg_cap)
+        except OverflowError:
+            agg_cap *= 4
+    return run(agg_cap)
 
 
 def generate_epochs(seconds: int, events_per_second: int, generators: int = 1
@@ -713,8 +726,8 @@ class StreamDriver:
             except OverflowError:
                 if attempt == _WIDENS:
                     raise
-                base = self.executor.agg_capacity or (
-                    max(caps.values()) + CONFIG.agg_span_margin)
+                base = self.executor.agg_capacity or agg_capacity_for(
+                    caps.values())
                 self.executor.agg_capacity = base * 4
                 caps = {r: c * 2 for r, c in caps.items()}
         return WindowResult(tag, self.executor.materialize(b))
@@ -792,7 +805,7 @@ class StreamDriver:
         processing time is made on the device from the arrival epoch (one
         constant per staged epoch), so nothing per row moves at emission;
         the aggregate is sized to the window's observed key span, and on
-        overflow its capacity quadruples (six attempts)."""
+        overflow its capacity quadruples (``widen_aggregate``)."""
         w = self.spec.window[1]
         rel = self.executor._driving_relation()
         # the span key is the plan's single group key (q12: bidder)
@@ -817,15 +830,8 @@ class StreamDriver:
             agg_cap = _bucket_cap_fine(span + CONFIG.agg_span_margin)
             pending.clear()
             with METRICS.span("driver.window"):
-                for attempt in range(_WIDENS + 1):
-                    try:
-                        b = self.executor.execute_consts(
-                            chunks, {"p_time": p_times}, agg_cap)
-                        break
-                    except OverflowError:
-                        if attempt == _WIDENS:
-                            raise
-                        agg_cap *= 4
+                b = widen_aggregate(lambda cap: self.executor.execute_consts(
+                    chunks, {"p_time": p_times}, cap), agg_cap)
                 return WindowResult(("ptime", start, start + w),
                                     self.executor.materialize(b))
 
@@ -900,7 +906,7 @@ class StreamDriver:
         (``execute_session_tables``); otherwise (sparse keys, restored
         unstaged chunks, or one key closed twice in one emission) the host
         realizes the rows (``em.to_batch()``) and they run as one window.
-        On overflow the aggregate capacity quadruples."""
+        On overflow the aggregate capacity quadruples (``widen_aggregate``)."""
         agg_cap = _pow2_bucket(em.n_sessions)
         dt = None
         if em.merged is not None and em.chunks and \
@@ -914,15 +920,9 @@ class StreamDriver:
             with METRICS.span("driver.window"):
                 chunks = [ch.staged for ch in em.chunks]
                 cids = [ch.cid for ch in em.chunks]
-                for attempt in range(_WIDENS + 1):
-                    try:
-                        b = self.executor.execute_session_tables(
-                            chunks, SessionState.key, dt, cids, agg_cap)
-                        break
-                    except OverflowError:
-                        if attempt == _WIDENS:
-                            raise
-                        agg_cap *= 4
+                b = widen_aggregate(
+                    lambda cap: self.executor.execute_session_tables(
+                        chunks, SessionState.key, dt, cids, cap), agg_cap)
                 return WindowResult(("sessions", em.t),
                                     self.executor.materialize(b))
         bid = em.to_batch()

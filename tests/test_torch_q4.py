@@ -1,8 +1,8 @@
 """The q4 slice end to end on the CPU: the port's StreamDriver against
 flock_tpu's on the same generated epochs, sink rows compared exactly (f64
 ``avg_final`` included), in the clean configuration and in the duplicate
-configuration that takes the fallback; both also against tests/oracle.py
-(PyTorch port, CPU)."""
+configuration that takes the fallback; both also against tests/oracle.py;
+the plan fused once per executor, not per window (PyTorch port, CPU)."""
 
 import numpy as np
 import pytest
@@ -12,7 +12,9 @@ import oracle
 from flock_tpu.queries.nexmark import get_query as ref_get_query
 from flock_tpu.runtime.executor import LocalExecutor as RefExecutor
 from flock_tpu.runtime.stream import StreamDriver as RefDriver
+from flock_tpu_torch import plan
 from flock_tpu_torch.queries.nexmark import get_query
+from flock_tpu_torch.runtime import executor
 from flock_tpu_torch.runtime.executor import LocalExecutor
 from flock_tpu_torch.runtime.stream import StreamDriver, generate_epochs
 from flock_tpu_torch.runtime.tables import concat_relations
@@ -82,3 +84,29 @@ def test_device_columns_equal_reference(config):
         for name in ("category", "sum_final", "cnt"):
             np.testing.assert_array_equal(g[name], r[name], err_msg=name)
         assert g["sum_final"].dtype == np.int64
+
+
+def test_plan_fused_once_per_executor(monkeypatch):
+    """The executor rewrites the plan (``plan.fuse_join_aggregates``) once,
+    at construction, and lowers that rewrite in every window: over several
+    windows the rewrite runs once, and the rows equal the reference's."""
+    seconds = 3
+    epochs = generate_epochs(seconds, 2_000, 1)
+    fused = []
+    orig = plan.fuse_join_aggregates
+
+    def spy(node):
+        fused.append(node)
+        return orig(node)
+
+    monkeypatch.setattr(plan, "fuse_join_aggregates", spy)
+    # the executor's own name for it, where it binds one at import
+    monkeypatch.setattr(executor, "fuse_join_aggregates", spy, raising=False)
+    port = StreamDriver(get_query(4), seconds, device="cpu")
+    got = port.run(epochs)
+    assert len(got) == seconds
+    assert fused == [port.spec.plan]
+    want = RefDriver(ref_get_query(4), seconds).run(epochs)
+    assert [g.tag for g in got] == [w.tag for w in want]
+    for g, w in zip(got, want):
+        assert _rows(g.columns) == _rows(w.columns)
