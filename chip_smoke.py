@@ -63,8 +63,8 @@ and the script exits non-zero:
    times printed).  Then the kernels, as in phase 2, on the tensors the
    main paths gave them in their first window: K2 and K3 at q7 (~36.8 M
    bids on one key and the gather of their max back to them), K2 at q5's
-   count onto ~37 M slots, K2 and K3 at YSB (~40 M events onto 128
-   campaign slots, the gather from 1,000 campaign slots), K2 at q12's
+   count onto ~37 M slots, K4 at YSB (~40 M events filtered, looked up
+   in 1,000 campaign slots and counted onto 128), K2 at q12's
    first chunk count (~3.68 M bids), K1 at q6 (~3.68 M bids, the int64
    max of ``__order`` and the seller carry), K2 at q11's first per-epoch
    aggregation (~3.68 M bids, count and min/max of ``b_date_time``) and
@@ -178,6 +178,9 @@ KERNELS = {
                   "flock_tpu/pallas/factored.py:460"),
     "gather": ("flock_tpu_torch/csrc/gather.cu",
                "flock_tpu/pallas/factored.py:555"),
+    # replaces no TPU kernel: fuses the port's filter, K3 and K2 chain for
+    # YSB's counts by a taken build column
+    "lookup_agg": ("flock_tpu_torch/csrc/lookup_agg.cu", "none"),
 }
 # the kernels each run's main path must launch (the bid-only element-wise
 # queries and q2's windows launch none)
@@ -190,7 +193,7 @@ QUERY_KERNELS = {"q4": ("join_agg", "dense_agg"),
                  "q5": ("dense_agg", "gather"),
                  "q7": ("dense_agg", "gather"),
                  "q8": ("dense_agg",),
-                 "ysb": ("dense_agg", "gather"),
+                 "ysb": ("dense_agg", "lookup_agg"),
                  "q11": ("dense_agg",), "q11-bench": ("dense_agg",),
                  "q11-generic": ("dense_agg", "gather"),
                  "q0": (), "q1": (), "q2": (), "q10": (), "q2-rows": (),
@@ -250,17 +253,18 @@ INGEST_EPS, INGEST_Q3_EPS, INGEST_GRANULE = 250_000, 100_000, 1024
 # and per-category aggregate on K2 around its fused pass on K1; q9's build
 # slotting, fused pass and the gather of the winners back to the bids; q3's
 # person slotting and gather
-WINDOW_LAUNCHES = {"q4": {"join_agg": 1, "dense_agg": 2, "gather": 0},
-                   "q9": {"join_agg": 1, "dense_agg": 1, "gather": 1},
-                   "q3": {"join_agg": 0, "dense_agg": 1, "gather": 1}}
+WINDOW_LAUNCHES = {
+    "q4": {"join_agg": 1, "dense_agg": 2, "gather": 0, "lookup_agg": 0},
+    "q9": {"join_agg": 1, "dense_agg": 1, "gather": 1, "lookup_agg": 0},
+    "q3": {"join_agg": 0, "dense_agg": 1, "gather": 1, "lookup_agg": 0}}
 # and per fallback lowering (a window whose auction ids repeat): the
 # build's slotting and the per-category (q4) or per-auction (q9) aggregate
 # on K2, q9's gather of the winners on K3; the fan-out and the unfused
 # partial plain
 WINDOW_FALLBACK_LAUNCHES = {"q4": {"join_agg": 0, "dense_agg": 2,
-                                   "gather": 0},
+                                   "gather": 0, "lookup_agg": 0},
                             "q9": {"join_agg": 0, "dense_agg": 2,
-                                   "gather": 1}}
+                                   "gather": 1, "lookup_agg": 0}}
 QUERY_KERNELS["ingest-q3"] = ("dense_agg", "gather")
 
 
@@ -341,8 +345,10 @@ MANY_AGGS_JOIN_SQL = (
     "b_date_time BETWEEN a_date_time AND expires GROUP BY a_id")
 # their launches a window
 MANY_AGGS_LAUNCHES = {
-    "sql-many-aggs": {"join_agg": 0, "dense_agg": 2, "gather": 0},
-    "sql-many-aggs-join": {"join_agg": 0, "dense_agg": 3, "gather": 1}}
+    "sql-many-aggs": {"join_agg": 0, "dense_agg": 2, "gather": 0,
+                      "lookup_agg": 0},
+    "sql-many-aggs-join": {"join_agg": 0, "dense_agg": 3, "gather": 1,
+                           "lookup_agg": 0}}
 QUERY_KERNELS.update({"sql-many-aggs": ("dense_agg",),
                       "sql-many-aggs-join": ("dense_agg", "gather")})
 
@@ -372,9 +378,10 @@ def counters() -> dict:
     from flock_tpu_torch.ops.dense_agg import dense_agg
     from flock_tpu_torch.ops.gather import gather
     from flock_tpu_torch.ops.join_agg import join_aggregate
+    from flock_tpu_torch.ops.lookup_agg import lookup_aggregate
 
     return {"join_agg": join_aggregate, "dense_agg": dense_agg,
-            "gather": gather}
+            "gather": gather, "lookup_agg": lookup_aggregate}
 
 
 @dataclasses.dataclass
@@ -499,11 +506,11 @@ def bracketed_launches(kernel: str):
     is shorter than the spin, the kernel was queued before the device
     reached the start event, and the interval holds no wait for the host.
     Yields the list of (pre, start, end, host seconds), one per launch."""
-    from flock_tpu_torch.ops import dense_agg, gather, join_agg
+    from flock_tpu_torch.ops import dense_agg, gather, join_agg, lookup_agg
 
-    if kernel == "gather":
-        owner, attr = gather, "_fn"
-        gather._kernel()
+    if kernel in ("gather", "lookup_agg"):
+        owner, attr = gather if kernel == "gather" else lookup_agg, "_fn"
+        owner._kernel()
     else:
         mod = dense_agg if kernel == "dense_agg" else join_agg
         owner, attr = mod._lib(), f"flock_{kernel}"
@@ -969,8 +976,8 @@ def _windowed_cases(inputs: dict) -> dict:
     (each the first such call of the run, from ``kernel_inputs``), each
     exact against its plain version: q7's max price over its one key and
     the gather of that max back to every bid; q5's count per auction onto
-    the window's aggregate capacity; YSB's count per campaign and the
-    gather of ``campaign_id`` from the campaign slots to every view."""
+    the window's aggregate capacity; YSB's filter, lookup and count per
+    campaign (K4)."""
     from flock_tpu_torch.ops.dense_agg import dense_agg, dense_agg_plain
 
     cases = {}
@@ -1022,8 +1029,7 @@ def _windowed_cases(inputs: dict) -> dict:
     k2("q7_one_key", amax_of("price"), "scatter_reduce_(amax) of price")
     k3("q7")
     k2("q5_count", count, "bincount of key - m")
-    k2("ysb_count", count, "bincount of key - m")
-    k3("ysb")
+    cases["lookup_agg/ysb"] = _ysb_k4_case(*inputs["lookup_agg/ysb"][0])
     k2("q12_chunk_count", count, "bincount of key - m")
     k2("q11_epoch", amax_of("b_date_time"),
        "scatter_reduce_(amax) of b_date_time")
@@ -1094,6 +1100,40 @@ def _q6_k1_case(slots, present, m, probe, pvalid, key, pred, aggs) -> dict:
         bytes=_k1_bytes(slots, present, read, pvalid, aggs), err=err)
 
 
+def _ysb_k4_case(taken, present, m, keys, valid, cols, pred, cap) -> dict:
+    """K4 on the tensors YSB's first window gave it: the view filter, the
+    campaign of each ad through the campaign slots and the count.  Exact
+    against its plain version; the library yardstick is ``bincount`` of
+    each passing row's group (made before timing); the bytes are the
+    columns the kernel reads once (key, validity and event type of every
+    row, the slot table) and its outputs once."""
+    from flock_tpu_torch.ops.lookup_agg import (lookup_agg_plain,
+                                                lookup_aggregate)
+
+    args = (taken, present, m, keys, valid, cols, pred, cap)
+    got, want = lookup_aggregate(*args), lookup_agg_plain(*args)
+    torch.cuda.synchronize()
+    err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+              for g, w in zip(got, want))
+    if bool(got[3]) or not bool(got[2].any()):
+        raise AssertionError("lookup_agg ysb: escaped, or no campaign counted")
+    rel = keys.to(torch.int64) - m.to(torch.int64)
+    ok = valid & pred(cols) & (rel >= 0) & (rel < present.shape[0])
+    slot = rel[ok]
+    idx = taken[slot][present[slot]].to(torch.int64) - int(
+        taken[present].min())
+    return dict(
+        kernel=lambda: lookup_aggregate(*args),
+        plain=lambda: lookup_agg_plain(*args),
+        library=lambda: torch.bincount(idx, minlength=cap),
+        library_call="bincount of each passing row's campaign - cmin",
+        shape=(f"{keys.numel()} events ({int(valid.sum())} valid, "
+               f"{idx.numel()} views), {int(present.sum())} of "
+               f"{present.numel()} ad slots present -> {cap} slots"),
+        bytes=nbytes(keys, valid, *cols.values(), taken, present)
+        + 9 * cap, err=err)
+
+
 def _agg_names(args) -> list:
     return [name for _, _, name in args[3]]
 
@@ -1106,9 +1146,7 @@ WINDOWED_PICKS = {
     "q7": {"dense_agg/q7_one_key": ("dense_agg",
                                     lambda a: "maxprice" in _agg_names(a)),
            "gather/q7": ("gather", lambda a: list(a[0]) == ["maxprice"])},
-    "ysb": {"dense_agg/ysb_count": ("dense_agg",
-                                    lambda a: _agg_names(a) == ["count"]),
-            "gather/ysb": ("gather", lambda a: list(a[0]) == ["campaign_id"])},
+    "ysb": {"lookup_agg/ysb": ("lookup_aggregate", lambda a: True)},
     # q6's fused pass in its first window: K1 with the int64 max of __order
     # and the seller carry; q12's first chunk count
     "q6": {"join_agg/q6": ("join_aggregate", lambda a: "__order" in a[3])},
@@ -1710,16 +1748,17 @@ def executors_made():
 
 @contextlib.contextmanager
 def kernel_inputs(picks: dict, into: dict):
-    """Keep the arguments of the K1 (``join_aggregate``, called by the
-    plan), K2 (``dense_agg``) and K3 (``gather``, called by the plain ops)
-    calls made inside the block: ``picks`` maps a case name to (wrapper,
+    """Keep the arguments of the K1 and K4 (``join_aggregate``,
+    ``lookup_aggregate``, called by the plan), K2 (``dense_agg``) and K3
+    (``gather``, called by the plain ops) calls made inside the block: ``picks`` maps a case name to (wrapper,
     test of the call's positional arguments), and ``into`` gets, for each
     case, the (args, kwargs) of the first call its test takes.  The wrapper
     itself runs as it would, and counts its launch as it would."""
     from flock_tpu_torch import plan
     from flock_tpu_torch.ops import kernels
 
-    where = {"dense_agg": kernels, "gather": kernels, "join_aggregate": plan}
+    where = {"dense_agg": kernels, "gather": kernels, "join_aggregate": plan,
+             "lookup_aggregate": plan}
     wrappers = {n: getattr(mod, n) for n, mod in where.items()}
 
     def keeping(n):

@@ -1,6 +1,7 @@
-// Shared pieces of K1 (join_agg.cu) and K2 (dense_agg.cu): aggregate codes,
-// quad loads, slot initialisation and flushing, and the atomics that apply
-// a value — alone, or combined over the lanes of a warp that hold one slot.
+// Shared pieces of K1 (join_agg.cu), K2 (dense_agg.cu) and K4 (lookup_agg.cu:
+// the quad loads and slot keys): aggregate codes, quad loads, slot
+// initialisation and flushing, and the atomics that apply a value — alone, or
+// combined over the lanes of a warp that hold one slot.
 //
 // Combining lanes (K2's block-shared and global variants).  Rows whose keys
 // fall on one slot would each make an atomic on the same address, and those
@@ -42,8 +43,9 @@ inline bool aligned(const void* p, uintptr_t bytes) {
 // Rows row..row+3 (row a multiple of 4): one 16-byte load when `vec` (every
 // column 16-byte aligned) and the quad lies inside [0, n); else element-wise,
 // rows at or beyond n reading 0.  kStream marks data read once (K1's probe
-// columns): evict-first loads, which leave L2 to the slot table the kernel
-// gathers from (6 % faster for K1 on the H100, PERF.md, PR 3).
+// columns, K4's keys, flags and columns): evict-first loads, which leave L2
+// to the slot table the kernel gathers from (6 % faster for K1 on the H100,
+// PERF.md, PR 3).  The flags' overload (4 bytes a quad) takes the same hint.
 template <bool kStream = false>
 __device__ __forceinline__ void load_quad(const int32_t* p, int64_t row,
                                           int64_t n, bool vec, int32_t (&v)[4]) {
@@ -57,10 +59,12 @@ __device__ __forceinline__ void load_quad(const int32_t* p, int64_t row,
   for (int e = 0; e < 4; ++e) v[e] = row + e < n ? __ldg(p + row + e) : 0;
 }
 
+template <bool kStream = false>
 __device__ __forceinline__ void load_quad(const uint8_t* p, int64_t row,
                                           int64_t n, bool vec, bool (&v)[4]) {
   if (vec && row + 3 < n) {
-    const uchar4 t = __ldg(reinterpret_cast<const uchar4*>(p + row));
+    const uchar4* q = reinterpret_cast<const uchar4*>(p + row);
+    const uchar4 t = kStream ? __ldcs(q) : __ldg(q);
     v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
     return;
   }

@@ -188,8 +188,11 @@ def fits_kernel(slot_names, wide, terms, aggs) -> bool:
     most ``_MAX_COLS`` columns read (compared or aggregated; a slot name
     reads the slot column), ``_MAX_TERMS`` comparisons, ``_MAX_AGGS``
     aggregates besides ``count`` and ``_MAX_PROBE`` int32 probe columns
-    (``wide`` columns take none of those registers).  It holds on every
-    device, so the CPU and the card lower the same plan."""
+    (``wide`` columns take none of those registers).  K1 compares columns
+    only: a term with a literal (``plan.Conj``) is refused.  It holds on
+    every device, so the CPU and the card lower the same plan."""
+    if any(not isinstance(rhs, str) for _, _, rhs in terms):
+        return False
     names = dict.fromkeys([c for lhs, _, rhs in terms for c in (lhs, rhs)]
                           + [c for c, fn, _ in aggs if fn != "count"])
     probe = [c for c in names if c not in slot_names and c not in wide]

@@ -19,7 +19,8 @@ Lowering rules (the reference's, the DistributedPlanner analogue):
   keys ``_composite_sort_key`` cannot route, else range-partitioned by 64
   samples per shard;
 * FusedJoinAggregate — a broadcast build, the fused partial (K2 slotting,
-  K1) per shard, then the shuffle and the final.
+  K1) per shard, then the shuffle and the final;
+* FusedLookupAggregate — its fallback, the unfused Aggregate(Join).
 
 Where the reference picks each shard's unfused branch on the device
 (``lax.cond``), the executor reads every shard's overflow and escape flags
@@ -51,11 +52,11 @@ from flock_tpu_torch.parallel.shuffle import (all_gather, all_to_all_by_dest,
                                               all_to_all_shuffle,
                                               broadcast_gather)
 from flock_tpu_torch.plan import (Aggregate, Compact, Filter,
-                                  FusedJoinAggregate, Join, Lowered, Node,
-                                  Project, Rank, Scan, Sort,
-                                  dup_expand_capacity, fuse_join_aggregates,
-                                  fused_local_pass, fused_replay,
-                                  fused_supported)
+                                  FusedJoinAggregate, FusedLookupAggregate,
+                                  Join, Lowered, Node, Project, Rank, Scan,
+                                  Sort, dup_expand_capacity,
+                                  fuse_join_aggregates, fused_local_pass,
+                                  fused_replay, fused_supported)
 from flock_tpu_torch.queries.nexmark import QuerySpec
 from flock_tpu_torch.runtime import stream as runtime_stream
 from flock_tpu_torch.runtime.executor import OverflowError, agg_capacity_for
@@ -305,6 +306,11 @@ def _lower_dist(node, tables, ctx: _Ctx, fallback: bool, memo: dict):
 
     if isinstance(node, FusedJoinAggregate):
         return _lower_fused_dist(node, tables, ctx, fallback, memo)
+
+    if isinstance(node, FusedLookupAggregate):
+        # sharded, the probe pass would need K4's counts shuffled as the
+        # Aggregate's partials are: the unfused subtree does that
+        return child(node.fallback)
 
     raise TypeError(f"unsupported distributed node {type(node)}")
 

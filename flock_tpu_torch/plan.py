@@ -32,9 +32,11 @@ import torch
 
 from flock_tpu_torch.batch import Batch
 from flock_tpu_torch.config import CONFIG
-from flock_tpu_torch.ops import kernels
+from flock_tpu_torch.ops import kernels, lookup_agg
+from flock_tpu_torch.ops.lookup_agg import lookup_aggregate
 from flock_tpu_torch.ops.join_agg import (fits_kernel, join_aggregate,
                                         unsupported_aggs, wide_cols)
+from flock_tpu_torch.utils.metrics import METRICS
 
 Expr = Callable[[dict], torch.Tensor]
 
@@ -44,9 +46,11 @@ _CMP = {"<": torch.lt, "<=": torch.le, ">": torch.gt, ">=": torch.ge,
 
 @dataclass(frozen=True)
 class Conj:
-    """A conjunction of column comparisons, ``terms = ((lhs, op, rhs), ...)``
-    with ``op`` one of ``< <= > >= == !=``.  Callable on a column dict like
-    any predicate, and inspectable: the fused kernel K1 reads its terms."""
+    """A conjunction of comparisons, ``terms = ((lhs, op, rhs), ...)`` with
+    ``op`` one of ``< <= > >= == !=``, ``lhs`` a column and ``rhs`` a column
+    or an integer literal.  Callable on a column dict like any predicate,
+    and inspectable: the fused kernels read its terms (K1 column terms only,
+    ``join_agg.fits_kernel``; K4 both kinds)."""
 
     terms: tuple
 
@@ -56,12 +60,22 @@ class Conj:
         for lhs, op, rhs in self.terms:
             if op not in _CMP:
                 raise ValueError(f"unknown comparison {op!r}")
+            if not isinstance(lhs, str) or isinstance(rhs, bool) \
+                    or not isinstance(rhs, (str, int)):
+                raise TypeError(f"a term compares a column with a column or "
+                                f"an int, got {(lhs, op, rhs)!r}")
+
+    def columns(self) -> list[str]:
+        """The columns the terms read, each once, in order."""
+        return list(dict.fromkeys(c for lhs, _, rhs in self.terms
+                                  for c in (lhs, rhs) if isinstance(c, str)))
 
     def __call__(self, cols: dict) -> torch.Tensor:
         # one device operation per term and one per AND (a single term is
         # its own mask)
-        return reduce(torch.logical_and, [_CMP[op](cols[lhs], cols[rhs])
-                                          for lhs, op, rhs in self.terms])
+        return reduce(torch.logical_and, [
+            _CMP[op](cols[lhs], cols[rhs] if isinstance(rhs, str) else rhs)
+            for lhs, op, rhs in self.terms])
 
 
 @dataclass(frozen=True)
@@ -191,6 +205,38 @@ class FusedJoinAggregate(Node):
         return (self.join,)
 
 
+@dataclass(frozen=True)
+class FusedLookupAggregate(Node):
+    """Filters + unique lookup join + counts grouped by a taken build column
+    in one probe pass (K4, ``ops/lookup_agg.py``): the filter mask, the
+    gathered column and the joined rows are never built.  Produced by
+    ``fuse_join_aggregates`` when an Aggregate of counts has one group key
+    that resolves, through renaming Projects, to a column a
+    ``unique_build`` Join without a post-filter takes from its build side,
+    and the Join's probe side is a chain of Filters with ``Conj``
+    predicates over a Scan (YSB's views per campaign).  The group is a
+    function of the join key, so each probe row's group comes through the
+    build's slot table.
+
+    ``join`` is that Join with the Filters taken off its probe side;
+    ``pred`` is their terms as one ``Conj`` (None without a Filter);
+    ``taken`` is the build column the group key resolves to.  A window
+    whose taken values span more than the output's slots escapes to
+    ``fallback``, the original Aggregate subtree; duplicate build keys
+    overflow, as the unique join's do."""
+
+    join: Join
+    taken: str
+    group_key: str
+    aggs: tuple
+    pred: Conj | None = None
+    fallback: Node = None
+    out_capacity: int | None = None
+
+    def inputs(self):
+        return (self.join,)
+
+
 def _sorted_by(node: Node, key: str) -> bool:
     """True when ``node``'s rows arrive grouped by ``key``: a Rank on that
     key, or a Sort whose first key it is, below order-preserving Filters
@@ -229,7 +275,7 @@ def _slot_dense(node: Node, key: str) -> bool:
         # a secondary key means duplicate windows emit more than one row per
         # primary key (the fallback's multi-key output is not slotted)
         return node.group_key == key and node.group_key2 is None
-    return False
+    return isinstance(node, FusedLookupAggregate) and node.group_key == key
 
 
 def dup_expand_capacity(n_probe: int) -> int:
@@ -363,6 +409,9 @@ def _lower_node(node: Node, tables, agg_capacity, fallback: bool,
     if isinstance(node, FusedJoinAggregate):
         return _lower_fused(node, tables, agg_capacity, fallback, memo)
 
+    if isinstance(node, FusedLookupAggregate):
+        return _lower_lookup_agg(node, tables, agg_capacity, fallback, memo)
+
     raise NotImplementedError(f"plan node {type(node).__name__} is not ported")
 
 
@@ -394,12 +443,13 @@ class FusedReplay:
 
 def _renamed(pred, names: dict):
     """The ``Conj`` ``pred``, written over the chain's current column
-    names, over the replay's names; None when it reads a column the chain
-    does not have, or is not a ``Conj``."""
-    if not isinstance(pred, Conj) or any(
-            c not in names for lhs, _, rhs in pred.terms for c in (lhs, rhs)):
+    names, over the replay's names (literals as they are); None when it
+    reads a column the chain does not have, or is not a ``Conj``."""
+    if not isinstance(pred, Conj) or any(c not in names
+                                         for c in pred.columns()):
         return None
-    return Conj(tuple((names[lhs], op, names[rhs])
+    return Conj(tuple((names[lhs], op,
+                       names[rhs] if isinstance(rhs, str) else rhs)
                       for lhs, op, rhs in pred.terms))
 
 
@@ -526,6 +576,49 @@ def _lower_fused(node: FusedJoinAggregate, tables, agg_capacity,
                    kernels.any_flag(b.escape, p.escape, esc, ovf_b))
 
 
+def _lower_lookup_agg(node: FusedLookupAggregate, tables, agg_capacity,
+                      fallback: bool, memo: dict) -> Lowered:
+    """K4 over the lowered build and probe Scan: the build slotted on K2
+    (max of the taken column and the duplicate flag), as the unique
+    join's ``lookup_join`` slots it, then the probe pass.  The node's
+    ``fallback`` lowers instead on the escape rerun, and wherever K4 cannot
+    take the node: a key, the taken column or a compared column that is
+    not int32, or the kernel's static limits (``lookup_agg.fits``) — a
+    rule of the plan's shapes, so every device lowers alike.  Each lowering
+    that takes K4 counts in ``lower.lookup_agg``."""
+    jn = node.join
+    cap = node.out_capacity or agg_capacity
+    if not fallback:
+        b = lower(jn.build, tables, agg_capacity, fallback, memo)
+        p = lower(jn.probe, tables, agg_capacity, fallback, memo)
+        cap = cap or p.valid.shape[0]
+        names = [] if node.pred is None else node.pred.columns()
+        if lookup_agg.fits(cap, node.pred) and all(
+                t.dtype == torch.int32 for t in (
+                    b.cols[jn.build_key], b.cols[node.taken],
+                    p.cols[jn.probe_key], *(p.cols[c] for c in names))):
+            span = b.valid.shape[0] + CONFIG.join_span_margin
+            slots, present, ovf_b, esc_b = kernels.dense_group_aggregate(
+                {jn.build_key: b.cols[jn.build_key],
+                 node.taken: b.cols[node.taken]},
+                b.valid, jn.build_key,
+                [(node.taken, "max", node.taken), (None, "dups", "__dups")],
+                span)
+            has_dups = slots.pop("__dups")
+            cnt, key, valid, esc = lookup_aggregate(
+                slots[node.taken], present, slots[jn.build_key][0],
+                p.cols[jn.probe_key], p.valid, {c: p.cols[c] for c in names},
+                node.pred, cap)
+            METRICS.count("lower.lookup_agg")
+            cols = {name: cnt for _, _, name in node.aggs}
+            cols[node.group_key] = key
+            return Lowered(cols, valid,
+                           kernels.any_flag(b.overflow, p.overflow, ovf_b,
+                                            has_dups),
+                           kernels.any_flag(b.escape, p.escape, esc_b, esc))
+    return lower(node.fallback, tables, agg_capacity, fallback, memo)
+
+
 def compile_plan(root: Node, agg_capacity: int | None = None):
     """Plan → ``fn(tables, fallback=False) -> (Batch, overflow, escape)``,
     the flags as 0-d bool tensors on the batches' device."""
@@ -583,14 +676,17 @@ def referenced_columns(root: Node) -> set[str] | None:
                 cols.add(n.tiebreak)
         elif isinstance(n, Sort):
             cols.update(n.keys)
-        elif isinstance(n, FusedJoinAggregate):
+        elif isinstance(n, (FusedJoinAggregate, FusedLookupAggregate)):
             return None  # pre-fusion plans only; fusion happens at compile
     return cols
 
 
 def fuse_join_aggregates(node: Node) -> Node:
     """Rewrite Aggregate(…Filter/Project…(Join)) patterns into
-    FusedJoinAggregate when the group key is the join key."""
+    FusedJoinAggregate when the group key is the join key, and
+    Aggregate(…Project…(Join(build, Filter…(Scan)))) into
+    FusedLookupAggregate when its counts group by one taken column of a
+    unique build (``_lookup_aggregate``)."""
 
     def resolve(chain, k):
         """Map a column name top-down through the Project chain, or None."""
@@ -641,6 +737,12 @@ def fuse_join_aggregates(node: Node) -> Node:
                         join=join, middle=tuple(reversed(chain)),
                         group_key=key, aggs=n.aggs, fallback=n,
                         out_capacity=n.out_capacity, group_key2=key2)
+            fused = _lookup_aggregate(n, chain, cur,
+                                      resolve(chain, n.group_keys[0]))
+            if fused is not None:
+                return dataclasses.replace(
+                    fused, join=dataclasses.replace(
+                        fused.join, build=rewrite(fused.join.build)))
         if isinstance(n, (Aggregate, Filter, Project, Rank, Sort, Compact)):
             return dataclasses.replace(n, child=rewrite(n.child))
         if isinstance(n, Join):
@@ -649,3 +751,31 @@ def fuse_join_aggregates(node: Node) -> Node:
         return n
 
     return rewrite(node)
+
+
+def _lookup_aggregate(agg: Aggregate, chain: list, join: Node,
+                      key_src: str | None) -> FusedLookupAggregate | None:
+    """``agg`` as a FusedLookupAggregate, or None where it is not one: its
+    aggregates all ``count``, ``chain`` (the nodes between it and
+    ``join``) renaming Projects only, its one group key resolved through
+    them (``key_src``) to a column that ``join`` takes from its build
+    side, ``join`` a ``unique_build`` Join without a post-filter whose
+    probe side is Filters with ``Conj`` predicates over a Scan.  Dtypes
+    are the lowering's to check (``_lower_lookup_agg``)."""
+    if not (isinstance(join, Join) and join.unique_build
+            and join.post_filter is None and len(agg.group_keys) == 1
+            and all(fn == "count" for _, fn, _ in agg.aggs)
+            and all(isinstance(nd, Project) for nd in chain)):
+        return None
+    taken = {dst: src for src, dst in join.take}.get(key_src)
+    probe, terms = join.probe, []
+    while isinstance(probe, Filter) and isinstance(probe.pred, Conj):
+        terms += probe.pred.terms
+        probe = probe.child
+    if taken is None or not isinstance(probe, Scan):
+        return None
+    return FusedLookupAggregate(
+        join=dataclasses.replace(join, probe=probe), taken=taken,
+        group_key=agg.group_keys[0], aggs=agg.aggs,
+        pred=Conj(tuple(terms)) if terms else None, fallback=agg,
+        out_capacity=agg.out_capacity)

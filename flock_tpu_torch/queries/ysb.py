@@ -9,8 +9,9 @@ with Window::Tumbling(10s) (benchmarks/src/ysb/main.rs:91).
 
 Columns are dictionary codes (see ``datagen/ysb.py``): event_type 'view' is
 0; the campaign table is (c_ad_id, campaign_id) with deterministic integer
-ids.  On the card K2 slots the campaign table, K3 gathers ``campaign_id``
-to every view and K2 counts per campaign.
+ids.  The filter is an inspectable ``Conj`` with a literal, so the plan
+fuses into one ``FusedLookupAggregate``: on the card K2 slots the campaign
+table and K4 filters, looks up and counts every event in one pass.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import numpy as np
 from flock_tpu_torch.batch import Schema, round_up
 from flock_tpu_torch.datagen.ysb import (EVENT_TYPE_VIEW, YsbConfig,
                                          generate_partition)
-from flock_tpu_torch.plan import Aggregate, Filter, Join, Scan
+from flock_tpu_torch.plan import Aggregate, Conj, Filter, Join, Scan
 from flock_tpu_torch.queries.nexmark import QuerySpec
 from flock_tpu_torch.runtime.executor import LocalExecutor
 from flock_tpu_torch.runtime.stream import WindowResult
@@ -28,7 +29,7 @@ from flock_tpu_torch.runtime.stream import WindowResult
 
 def ysb_query() -> QuerySpec:
     views = Filter(Scan("ad_event"),
-                   lambda c: c["event_type"] == EVENT_TYPE_VIEW,
+                   Conj((("event_type", "==", EVENT_TYPE_VIEW),)),
                    "event_type='view'")
     joined = Join(build=Scan("campaign"), probe=views,
                   build_key="c_ad_id", probe_key="ad_id",

@@ -13,11 +13,13 @@ import pytest
 import torch
 
 from flock_tpu_torch import plan
+from flock_tpu_torch.batch import Batch
 from flock_tpu_torch.ops import kernels
 from flock_tpu_torch.ops.dense_agg import (accumulator_variant, dense_agg,
                                            dense_agg_plain)
 from flock_tpu_torch.ops.gather import gather, gather_plain
 from flock_tpu_torch.ops.join_agg import join_agg_plain, join_aggregate
+from flock_tpu_torch.ops.lookup_agg import lookup_agg_plain, lookup_aggregate
 from flock_tpu_torch.plan import Conj
 from flock_tpu_torch.datagen.ysb import YsbConfig
 from flock_tpu_torch.queries.nexmark import get_query
@@ -25,8 +27,9 @@ from flock_tpu_torch.queries.ysb import run_ysb
 from flock_tpu_torch.runtime.stream import StreamDriver, generate_epochs
 from torch_kernel_cases import (K1_AGGS, K1_CASES, K1_I64_AGGS, K1_I64_CASES,
                                 K1_TERMS, K2_AGGS, K2_CASES, K2_LANES_CAP,
-                                K3_CASES, k1_case, k1_i64_case, k1_i64_numpy,
-                                k2_aggs, k2_case, k3_case)
+                                K3_CASES, K4_CASES, k1_case, k1_i64_case,
+                                k1_i64_numpy, k2_aggs, k2_case, k3_case,
+                                k4_case, k4_slots, k4_terms)
 
 pytestmark = pytest.mark.cuda
 
@@ -610,10 +613,12 @@ def test_windowed_queries_on_the_card_equal_cpu(dev, q, win):
 def test_ysb_on_the_card_equals_cpu(dev):
     cfg = YsbConfig(seconds=20, events_per_second=200_000, threads=2)
     lanes = dense_agg.variant_launches["lanes"]
+    k4 = lookup_aggregate.launches
     gpu = run_ysb(cfg, device=dev)
-    # each window's count per campaign is one launch of the lane-private
-    # variant
-    assert dense_agg.variant_launches["lanes"] - lanes == len(gpu)
+    # each window's filter, lookup and count per campaign is one call of K4,
+    # and K2 counts nothing by campaign (it only slots the campaign table)
+    assert lookup_aggregate.launches - k4 == len(gpu)
+    assert dense_agg.variant_launches["lanes"] == lanes
     cpu = run_ysb(cfg, device="cpu")
     assert len(gpu) == len(cpu) == 2
     for g, c in zip(gpu, cpu):
@@ -1144,3 +1149,77 @@ def test_five_wide_sums_sharded_on_the_card_equal_cpu(dev, no_plain_on_card):
     for name in spec.schema.names:
         np.testing.assert_array_equal(got[0][name], got[1][name],
                                       err_msg=name)
+
+
+# K4's cases on the card: the adversarial ones of torch_kernel_cases, plus
+# YSB's shape at 4 M events with n one past a multiple of 4
+K4_CARD_CASES = K4_CASES + ("ysb_4m",)
+
+
+def _k4_args(dev, case, offset=0):
+    name, n = ("ysb", 4 * 2**20 + 1) if case == "ysb_4m" else (case, 8192)
+    build, events, cap = k4_case(name, n=n)
+    taken, present, m = k4_slots(build)
+    cols = {c: _on(dev, events[c], offset) for c in ("et", "x", "y")}
+    return (_on(dev, taken), _on(dev, present),
+            torch.tensor(int(m), dtype=torch.int32, device=dev),
+            _on(dev, events["ad"], offset), _on(dev, events["valid"], offset),
+            cols, Conj(k4_terms(name)), cap)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("case", K4_CARD_CASES)
+def test_lookup_agg_kernel_equals_plain(dev, case, offset):
+    """K4 against its plain version on the same card tensors: counts, slot
+    keys, validity and the escape flag, bit for bit; ``offset`` 1 takes
+    the element-wise loads (columns off the 16-byte boundary)."""
+    args = _k4_args(dev, case, offset)
+    before = lookup_aggregate.launches
+    got = lookup_aggregate(*args)
+    want = lookup_agg_plain(*args)
+    assert lookup_aggregate.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_lookup_agg_writes_every_output(dev, monkeypatch):
+    """K4's outputs and scratch (``torch.empty``) hold 0x7f bytes when the
+    kernels start, and still equal the plain version's."""
+    empty = torch.empty
+
+    def stale_empty(*shape, **kw):
+        t = empty(*shape, **kw)
+        t.view(torch.uint8).fill_(0x7f)
+        return t
+
+    args = _k4_args(dev, "misses")
+    want = lookup_agg_plain(*args)
+    with monkeypatch.context() as mp:
+        mp.setattr(torch, "empty", stale_empty)
+        got = lookup_aggregate(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", K4_CASES)
+def test_lookup_aggregate_node_on_the_card_equals_cpu(dev, case):
+    """The fused node's lowering (K2's build slotting, then K4) on the card
+    against the CPU's: every column, the validity and both flags."""
+    build, events, cap = k4_case(case)
+    views = plan.Filter(plan.Scan("ev"), Conj(k4_terms(case)))
+    node = plan.fuse_join_aggregates(plan.Aggregate(
+        plan.Join(build=plan.Scan("camp"), probe=views, build_key="k",
+                  probe_key="ad", take=(("cid", "cid"),), unique_build=True),
+        ("cid",), ((None, "count", "n"),), out_capacity=cap))
+    assert isinstance(node, plan.FusedLookupAggregate)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        tables = {rel: Batch({c: _on(d, v) for c, v in t.items()
+                              if c != "valid"}, _on(d, t["valid"]))
+                  for rel, t in (("camp", build), ("ev", events))}
+        outs.append(plan.lower(node, tables))
+    g, c = outs
+    _same({k: v.cpu() for k, v in g.cols.items()}, c.cols)
+    assert torch.equal(g.valid.cpu(), c.valid)
+    assert bool(g.overflow) == bool(c.overflow)
+    assert bool(g.escape) == bool(c.escape)

@@ -1,6 +1,6 @@
 """Adversarial inputs for kernels K1 (fused join-aggregate, its int64 max
-included), K2 (dense grouped aggregate) and K3 (probe-side gather), numpy
-arrays made from a seed.  Shared by the CPU tests
+included), K2 (dense grouped aggregate), K3 (probe-side gather) and K4
+(filter, unique lookup and count), numpy arrays made from a seed.  Shared by the CPU tests
 (``test_torch_kernel_cases.py``, ``test_torch_gather_cases.py``,
 ``test_torch_join_agg_i64.py``: the plain versions against flock_tpu and
 numpy), the card tests (``test_torch_cuda.py``: the kernels against their
@@ -279,3 +279,111 @@ def k3_case(name: str, span: int = 4096, n: int = 8192, seed: int = 0):
     if name == "carry_ragged":
         out_rows = n + 6
     return slots, present, np.int32(m), keys, valid, out_rows, carry
+
+
+# K4: a unique campaign table (k, cid) and an event table (ad, et, x, y)
+# counted per campaign of the events that pass ``k4_terms``: YSB's plan over
+# the views (et == 0), unless the case says otherwise
+K4_OPS = ("<", "<=", ">", ">=", "==", "!=")
+K4_CASES = (
+    "ysb",           # 1,000 ads of 100 campaigns, a third of the events views
+    "misses",        # ads below the least key, past the span, on absent slots
+    "no_valid",      # no valid event
+    "no_view",       # no event passes the filter
+    "empty_build",   # no valid campaign row: every slot absent
+    "wide_span",     # the campaigns span past the capacity: escape; the
+                     # viewed ones fit it, so the rerun does not overflow
+    "dup_keys",      # a repeated ad id: overflow, as the unique join's
+    "many_ads",      # 10,000 ads: a slot table ten times YSB's
+    "ragged",        # n not a multiple of 4
+    "n_1",
+    "two_terms",     # a literal term and a column term together
+) + tuple(f"op{op}" for op in K4_OPS)   # one literal term of each operator
+K4_CAP = 128
+
+
+def k4_terms(name: str) -> tuple:
+    """The filter's ``Conj`` terms of case ``name``."""
+    if name.startswith("op"):
+        return (("et", name[2:], 1),)
+    if name == "two_terms":
+        return (("et", "==", 0), ("x", "<", "y"))
+    return (("et", "==", 0),)
+
+
+def k4_case(name: str, n: int = 8192, seed: int = 0):
+    """(campaign table, event table, capacity): each a dict of numpy
+    columns with its ``valid`` mask."""
+    rng = np.random.default_rng(seed)
+    n = {"ragged": 1003, "n_1": 1}.get(name, n)
+    ads = {"many_ads": 10_000}.get(name, 1000)
+    base = {"misses": 500}.get(name, 0)
+    k = base + np.arange(ads)
+    cid = k // (ads // 100)
+    bvalid = np.ones(ads, bool)
+    if name == "misses":
+        bvalid = rng.random(ads) < 0.8
+    elif name == "empty_build":
+        bvalid[:] = False
+    elif name == "wide_span":
+        # one more ad whose campaign lies 900 past the others, never viewed
+        k, cid = np.append(k, 5000), np.append(cid, 1000)
+        bvalid = np.append(bvalid, True)
+    elif name == "dup_keys":
+        k[7] = k[8]
+    ad = base + rng.integers(0, ads, n)
+    if name == "misses":
+        r = rng.random(n)
+        ad = np.where(r < 0.2, rng.integers(-1000, base, n),
+                      np.where(r < 0.4, rng.integers(base + ads, 10**6, n),
+                               ad))
+    et = rng.integers(0, 3, n)
+    if name == "no_view":
+        et = rng.integers(1, 3, n)
+    evalid = rng.random(n) < 0.9
+    if name == "no_valid":
+        evalid[:] = False
+    if name == "wide_span":
+        et = np.where(ad == 5000, 1, et)
+    build = {"k": k.astype(np.int32), "cid": cid.astype(np.int32),
+             "valid": bvalid}
+    events = {"ad": ad.astype(np.int32), "et": et.astype(np.int32),
+              "x": rng.integers(-50, 50, n).astype(np.int32),
+              "y": rng.integers(-50, 50, n).astype(np.int32),
+              "valid": evalid}
+    return build, events, K4_CAP
+
+
+def k4_numpy(build: dict, events: dict, terms: tuple) -> dict:
+    """{campaign: count} of the valid events that pass ``terms`` and meet a
+    valid campaign row (the campaign keys are unique in every case whose
+    answer is compared)."""
+    ops = {"<": np.less, "<=": np.less_equal, ">": np.greater,
+           ">=": np.greater_equal, "==": np.equal, "!=": np.not_equal}
+    ok = events["valid"].copy()
+    for lhs, op, rhs in terms:
+        ok &= ops[op](events[lhs], events[rhs] if isinstance(rhs, str)
+                      else rhs)
+    camp = dict(zip(build["k"][build["valid"]].tolist(),
+                    build["cid"][build["valid"]].tolist()))
+    out: dict = {}
+    for a in events["ad"][ok].tolist():
+        if a in camp:
+            out[camp[a]] = out.get(camp[a], 0) + 1
+    return out
+
+
+def k4_slots(build: dict, margin: int = 8192):
+    """(taken, present, m) as K2's build slotting leaves them for a unique
+    campaign table: slot s holds key m + s, ``margin`` slots past the
+    rows."""
+    span = len(build["k"]) + margin
+    keys = build["k"][build["valid"]].astype(np.int64)
+    m = int(keys.min()) if keys.size else 2**31 - 1
+    taken = np.full(span, -2**31, np.int32)
+    present = np.zeros(span, bool)
+    s = keys - m
+    inside = s < span
+    taken[s[inside]] = build["cid"][build["valid"]][inside]
+    present[s[inside]] = True
+    return taken, present, np.int32(m)
